@@ -1,0 +1,128 @@
+"""The port's closed-loop slice end to end against the JAX package: the
+same ``sweep`` through ``repro_torch`` (plain PyTorch version, CPU) and
+``repro.core.simlock`` must agree in every ``SimState`` leaf's bytes
+(``tests/golden_digests.py::digest_state``) and in every ``summarize``
+key, at the golden-digest scale (``SIM_US``, ``SLO_US``, ``SEED``,
+``SWEEP_AXES``).  Tolerance: exact equality.
+
+The Bench-1 program runs in ``test_torch_simlock_bench1.py`` and the
+single runs, carries and extra axes in ``test_torch_simlock_run.py``;
+this file also holds the checks of what the port refuses."""
+
+import numpy as np
+import pytest
+import torch
+
+import golden_digests as gd
+from repro.core import simlock as rsl
+from repro_torch.core import simlock as sl
+
+
+def summary_digests(summaries) -> list:
+    """NaN-safe digests of summaries (numpy grid scalars as floats)."""
+    return [gd.digest_summary({k: float(v) if isinstance(v, np.generic)
+                               else v for k, v in s.items()})
+            for s in summaries]
+
+
+def compare_sweep(policy, axes, product=True, **kw):
+    """Sweep both packages; assert every leaf and summary is equal."""
+    cfg = sl.SimConfig(policy=policy, sim_time_us=gd.SIM_US, **kw)
+    rcfg = rsl.SimConfig(policy=policy, sim_time_us=gd.SIM_US, **kw)
+    st, grid = sl.sweep(cfg, axes, slo_us=gd.SLO_US, seed=gd.SEED,
+                        product=product, device="cpu")
+    rst, rgrid = rsl.sweep(rcfg, axes, slo_us=gd.SLO_US, seed=gd.SEED,
+                           product=product)
+    got, want = gd.digest_state(sl.to_reference(st)), gd.digest_state(rst)
+    assert sorted(got) == sorted(want)
+    assert [k for k in want if got[k] != want[k]] == []
+    assert sorted(grid) == sorted(rgrid)
+    for k in grid:
+        np.testing.assert_array_equal(grid[k], rgrid[k])
+    assert summary_digests(sl.sweep_summaries(cfg, st, grid,
+                                              slo_us=gd.SLO_US)) == \
+        summary_digests(rsl.sweep_summaries(rcfg, rst, rgrid,
+                                            slo_us=gd.SLO_US))
+    return st
+
+
+@pytest.mark.parametrize("policy", ["fifo", "tas", "prop", "libasl"])
+def test_sweep_matches_reference(policy):
+    st = compare_sweep(policy, dict(gd.SWEEP_AXES))
+    assert (st.events > 1000).all()
+
+
+def test_policy_ids_and_axes_match_reference():
+    ref_ids = rsl.POLICIES
+    assert sl.POLICIES == {k: ref_ids[k] for k in
+                           ("fifo", "tas", "prop", "libasl")}
+    assert set(sl.SWEEPABLE) <= set(rsl.SWEEPABLE)
+    assert set(sl.SWEEPABLE) | set(sl._LATER_AXES) | \
+        set(rsl.table_axes()) == set(rsl.SWEEPABLE)
+    assert list(sl.SimState._fields) == list(rsl.SimState._fields)
+    assert list(sl.SimParams._fields) == list(rsl.SimParams._fields)
+    assert list(sl.SimTables._fields) == list(rsl.SimTables._fields)
+
+
+def test_default_device_needs_cuda(monkeypatch):
+    """``device=None`` means CUDA; without a card the entry points raise
+    instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = sl.SimConfig(sim_time_us=100.0)
+    for call in (lambda: sl.sweep(cfg, {"seed": [0]}),
+                 lambda: sl.run(cfg, gd.SLO_US),
+                 lambda: sl.build_tables(cfg),
+                 lambda: sl.build_params(cfg, gd.SLO_US)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
+@pytest.mark.parametrize("kw, feature", [
+    (dict(wl=True), "wl"),
+    (dict(wl_open=True), "wl_open"),
+    (dict(long_epoch_prob=0.1), "long_epoch_prob"),
+    (dict(wakeup_us=2.0), "wakeup_us"),
+    (dict(preempt_rate=0.1), "preempt_rate"),
+    (dict(churn_rate=0.1), "churn_rate"),
+    (dict(straggle_rate=0.1), "straggle_rate"),
+    (dict(n_keys=16), "n_keys"),
+    (dict(hist=True), "hist"),
+    (dict(p_cs=(1.0,)), "power tables"),
+    (dict(policy_set=("fifo", "tas")), "policy_set"),
+    (dict(policy="edf"), "edf"),
+    (dict(policy="ks_crew"), "ks_crew"),
+])
+def test_unsupported_features_raise(kw, feature):
+    with pytest.raises(NotImplementedError, match=feature):
+        sl.SimConfig(**kw)
+
+
+@pytest.mark.parametrize("axis, values", [
+    ("policy", ["fifo", "tas"]),
+    ("long_epoch_prob", [0.1]),
+    ("arrival_rate", [0.5]),
+    ("n_keys", [4]),
+    ("seg_cs_us", [(3.0,)]),
+    ("slo_scale", [(1.0,) * 8]),
+])
+def test_unsupported_axes_raise(axis, values):
+    with pytest.raises(NotImplementedError, match=axis):
+        sl.sweep(sl.SimConfig(sim_time_us=100.0), {axis: values},
+                 device="cpu")
+
+
+def test_bad_sweeps_raise_like_reference():
+    cfg = sl.SimConfig(sim_time_us=100.0)
+    with pytest.raises(ValueError, match="unknown sweep axis"):
+        sl.sweep(cfg, {"no_such_axis": [1]}, device="cpu")
+    with pytest.raises(ValueError, match="empty sweep"):
+        sl.sweep(cfg, {}, device="cpu")
+    with pytest.raises(ValueError, match="n_cores"):
+        sl.sweep(cfg, {"n_cores": [9]}, device="cpu")
+    with pytest.raises(ValueError, match="equal-length"):
+        sl.sweep(cfg, {"seed": [0, 1], "slo_us": [1.0]}, product=False,
+                 device="cpu")
+    with pytest.raises(ValueError, match="unknown lock policy"):
+        sl.SimConfig(policy="fifoo")
+    with pytest.raises(ValueError, match="pct"):
+        sl.SimConfig(pct=0.0)
