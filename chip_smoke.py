@@ -8,7 +8,8 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, each of which fails the script (non-zero exit, no result line):
 
 1. Print the card (``nvidia-smi``) and build every CUDA kernel from
-   ``src/repro_torch/kernels/csrc`` with ``nvcc``.
+   ``src/repro_torch/kernels/csrc`` with ``nvcc`` (one process per
+   source, all started together).
 2. Hold the ``fused_chunk`` kernel against its plain PyTorch version on
    the card, bit for bit in every state leaf: each policy on the fig1 and
    Bench-1 programs over a small grid, chunk 1 against chunk 128, and one
@@ -19,7 +20,20 @@ Phases, each of which fails the script (non-zero exit, no result line):
    Every cell must retire events, the n_cores=8 summaries must be
    finite, and the n_cores=8 (seed 0) cells must equal the JAX package's
    final state bit for bit (``REFERENCE_DIGESTS``).
-4. Print the kernel table (JSON) and, last, the device line.
+4. Hold the ``mlstm_scan`` kernel against its plain PyTorch version on
+   the card: f32 and bf16 inputs, with and without a carry, S in {1, 7,
+   256}, dh in {32, 192}; h, C, n and m within the JAX package's kernel
+   bar (``tests/test_kernels.py``: 10 x TOL on h, 1e-4 on C and n, 1e-5
+   on m).  Time one launch at the serving shapes, with its bound.
+5. Serve xlstm-125m at its full config (130,425,648 parameters, bf16)
+   through ``repro_torch.launch.serve.main`` under the asl, fifo and
+   greedy schedulers, with the ``mlstm_scan`` launch counter set to 0
+   just before and read just after.
+6. The full-width model against its plain path on the card: prefill 256
+   tokens then 8 decode steps through the kernel and through the plain
+   version; logits within 10 x TOL[bf16] = 0.2.  Then where a prefill's
+   and a decode step's time goes, block by block.
+7. Print the kernel table (JSON) and, last, the device line.
 
 It exits non-zero when no CUDA device is present, and when the port's
 package is not next to it.
@@ -39,6 +53,21 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12      # H100 SXM non-tensor f32 rate
+
+# The serving path: xlstm-125m at its full config, the calibration's
+# shapes (launch/serve.py: batch 8, prefill chunk 256), and a Poisson
+# stream sized to the calibrated cost on one H100 (a 256-token chunk of
+# 8 sequences takes 0.36-0.62 s there, so 0.25 requests/s of
+# ~1,200-token prompts keeps the engine busy most of the time) with a
+# TTFT SLO of 8 s.
+ARCH = "xlstm-125m"
+N_PARAMS = 130_425_648
+SERVE_BATCH, SERVE_CHUNK = 8, 256
+SERVE_ARGS = ["--rate", "0.25", "--duration", "600", "--slo-ttft", "8"]
+# The JAX package's kernel bar (tests/test_kernels.py: TOL, and 10 x TOL
+# on h), and the model's logits against its plain path at 10 x TOL[bf16].
+MLSTM_TOL = {"float32": 3e-4, "bfloat16": 0.2}
+LOGITS_TOL = 0.2
 
 # Fig1 calibration (benchmarks/paper_figs.py): 4 big + 4 little cores, CS
 # 3 us, non-CS 1 us, inter-epoch 5 us, CS ratio 3.75, non-CS ratio 1.8.
@@ -312,6 +341,240 @@ def phase_main(sl, simstep) -> dict:
     return {"launches": launches}
 
 
+def mlstm_inputs(gen, b, h, s, dh, dtype, carry):
+    """Random q, k (scaled by 1/sqrt(dh)), v in ``dtype``, f32 gates (the
+    forget gate biased open, as the model initializes it) and, if asked,
+    a positive f32 carry, all on the card."""
+    import torch
+    f = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    q, k, v = f(b, h, s, dh), f(b, h, s, dh) / dh ** 0.5, f(b, h, s, dh)
+    args = [t.to(dtype) for t in (q, k, v)] + [f(b, h, s), f(b, h, s) + 2.0]
+    c = (f(b, h, dh, dh).abs() * 0.1, f(b, h, dh).abs() * 0.1,
+         f(b, h) * 0.5) if carry else None
+    return args, c
+
+
+def mlstm_diff(got, want, dtype) -> tuple:
+    """(max abs error of h, C, n, m; within the stated tolerance?)"""
+    import torch
+    (h, c), (wh, wc) = got, want
+    pairs = [(h.float(), wh.float(), MLSTM_TOL[dtype])] + [
+        (a, b, tol) for a, b, tol in zip(c, wc, (1e-4, 1e-4, 1e-5))]
+    errs = [float((a - b).abs().max()) for a, b, _ in pairs]
+    ok = all(torch.allclose(a, b, atol=tol, rtol=tol) for a, b, tol in pairs)
+    return errs, ok
+
+
+def mlstm_bound(b, h, s, dh, esize, carry) -> tuple:
+    """Least time of one scan on the card: each input and output touched
+    once (q, k, v, h in their type; gates, carry in and out in f32), and
+    per step and head 6 dh^2 + 6 dh f32 operations (C update 4 dh^2,
+    readout 2 dh^2, n update, n.q and the division 6 dh) plus ~10 for the
+    gates, over the non-tensor f32 rate."""
+    state = b * h * (dh * dh + dh + 1) * 4
+    n_bytes = (4 * b * h * s * dh * esize + 2 * b * h * s * 4
+               + state * (2 if carry else 1))
+    ops = b * h * s * (6 * dh * dh + 6 * dh + 10)
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                           "operations")
+
+
+def phase_mlstm(ms) -> dict:
+    """mlstm_scan == its plain version on the card over the listed cases,
+    then one launch at the serving shapes timed against its bound."""
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    n_bad = 0
+    for dname, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        for dh in (32, 192):
+            for s in (1, 7, 256):
+                for carry in (False, True):
+                    args, c = mlstm_inputs(gen, 2, 4, s, dh, dtype, carry)
+                    n0 = ms.mlstm_scan.launches
+                    got = ms.mlstm_scan(*args, c)
+                    torch.cuda.synchronize()
+                    want = ms.mlstm_scan_ref(*args, c)
+                    errs, ok = mlstm_diff(got, want, dname)
+                    ok = ok and ms.mlstm_scan.launches == n0 + 1
+                    n_bad += not ok
+                    print(f"mlstm_scan {dname} B=2 H=4 S={s} dh={dh} "
+                          f"carry={carry}: max abs err h/C/n/m "
+                          f"{' '.join(f'{e:.3g}' for e in errs)} "
+                          f"{'ok' if ok else 'OVER TOLERANCE'}", flush=True)
+    if n_bad:
+        raise AssertionError(f"mlstm_scan != plain version in {n_bad} cases")
+    # The serving shapes: a prefill chunk of the calibration, as the model
+    # calls the kernel (f32 q, k, v and gates, no carry).
+    b, h, s, dh = SERVE_BATCH, 4, SERVE_CHUNK, 192
+    args, _ = mlstm_inputs(gen, b, h, s, dh, torch.float32, False)
+    for _ in range(3):
+        ms.mlstm_scan(*args)
+    reps, times = 10, []
+    for _ in range(3):
+        times.append(cuda_ms(lambda: [ms.mlstm_scan(*args)
+                                      for _ in range(reps)]) / reps)
+    got = ms.mlstm_scan(*args)
+    out = {}
+    plain_ms = cuda_ms(lambda: out.update(want=ms.mlstm_scan_ref(*args)))
+    errs, ok = mlstm_diff(got, out["want"], "float32")
+    kernel_ms = sorted(times)[1]
+    bound, by = mlstm_bound(b, h, s, dh, 4, False)
+    print(f"mlstm_scan serving shapes B={b} H={h} S={s} dh={dh} f32: kernel "
+          f"{kernel_ms:.4f} ms/launch (of {[round(t, 4) for t in times]}), "
+          f"plain {plain_ms:.2f} ms, bound {bound:.5f} ms ({by}), max abs "
+          f"err h {errs[0]:.3g}", flush=True)
+    if not ok:
+        raise AssertionError("mlstm_scan != plain at the serving shapes")
+    # The decode shapes: one step from a carry.
+    args1, c1 = mlstm_inputs(gen, b, h, 1, dh, torch.float32, True)
+    dec_ms = cuda_ms(lambda: [ms.mlstm_scan(*args1, c1)
+                              for _ in range(100)]) / 100
+    errs1, ok1 = mlstm_diff(ms.mlstm_scan(*args1, c1),
+                            ms.mlstm_scan_ref(*args1, c1), "float32")
+    print(f"mlstm_scan decode shapes B={b} H={h} S=1 dh={dh} with carry: "
+          f"kernel {dec_ms:.4f} ms/launch, bound "
+          f"{mlstm_bound(b, h, 1, dh, 4, True)[0]:.5f} ms, max abs err "
+          f"h/C/n/m {' '.join(f'{e:.3g}' for e in errs1)}", flush=True)
+    if not ok1:
+        raise AssertionError("mlstm_scan != plain at the decode shapes")
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "max_abs_err": errs[0],
+            "bound_ms": bound, "bound_by": by}
+
+
+def phase_serve(ms) -> dict:
+    """The serving path: xlstm-125m at full config under the three
+    schedulers, each calibrating on the card and answering a Poisson
+    stream; the kernel counter is read just after."""
+    import math
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    import numpy as np
+    cfg = registry.get(ARCH)[0]
+    n = sum(int(np.prod(ps.shape)) for ps in _leaves(lm.build_schema(cfg)))
+    if n != N_PARAMS or cfg.dtype != "bfloat16":
+        raise AssertionError(f"{ARCH}: {n} parameters in {cfg.dtype}")
+    ms.mlstm_scan.launches = 0
+    runs = {}
+    for sched in ("asl", "fifo", "greedy"):
+        runs[sched] = serve.main(["--arch", ARCH, "--scheduler", sched]
+                                 + SERVE_ARGS)
+    launches = ms.mlstm_scan.launches
+    for sched, m in runs.items():
+        print(f"serve {ARCH} ({n} parameters, {cfg.dtype}) {sched}: "
+              f"decode {m['decode_step_s'] * 1e3:.2f} ms, prefill chunk "
+              f"{m['prefill_chunk_s'] * 1e3:.2f} ms, n={m['n']}, "
+              f"tok/s={m.get('throughput_tok_s', float('nan')):.1f}, "
+              f"TTFT P99 {m.get('ttft_p99', float('nan')) * 1e3:.1f} ms, "
+              f"ITL P99 {m.get('itl_p99', float('nan')) * 1e3:.1f} ms, "
+              f"violations {m.get('slo_violation_rate', float('nan')):.1%}",
+              flush=True)
+        if m["n"] <= 0 or not all(math.isfinite(m[k]) for k in (
+                "throughput_tok_s", "ttft_p99", "itl_p99",
+                "decode_step_s", "prefill_chunk_s")):
+            raise AssertionError(f"serve {sched}: bad metrics {m}")
+    print(f"serve: {launches} mlstm_scan launches over the three runs",
+          flush=True)
+    if launches <= 0:
+        raise AssertionError("the serving path launched no mlstm_scan")
+    return {"launches": launches}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def timed_blocks(lm, p, cfg, x, cache, table, **kw) -> tuple:
+    """Run the blocks of ``lm``'s step one by one (as ``lm.prefill`` /
+    ``lm.decode_step`` do), each bracketed by synchronisations; ->
+    (output, new cache, seconds per block kind)."""
+    import torch
+    spent = {}
+    new = []
+    for lp, lc, kind in zip(p["blocks"], cache, cfg.blocks()):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, nc = table[kind](lp, x, cfg, cache=lc, **kw)
+        torch.cuda.synchronize()
+        spent[kind] = spent.get(kind, 0.0) + time.perf_counter() - t0
+        new.append(nc)
+    return x, new, spent
+
+
+def phase_model(ms) -> None:
+    """Full-width xlstm-125m on the card: prefill 256 tokens and 8 decode
+    steps through the kernel and through the plain version, logits held
+    together; then the block-by-block split of one prefill and one
+    decode step."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+    cfg = registry.get(ARCH)[0]
+    params = lm.init_params(cfg, 0, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    b, s = SERVE_BATCH, SERVE_CHUNK
+    toks = torch.randint(0, cfg.vocab, (b, s + 8), generator=gen,
+                         device="cuda")
+    logits = {}
+    for path, scan in (("kernel", None), ("plain", ms.mlstm_scan_ref)):
+        n0 = ms.mlstm_scan.launches
+        out, cache = lm.prefill(params, cfg, {"tokens": toks[:, :s]},
+                                lm.init_cache(cfg, b, 512, "cuda"),
+                                mlstm_scan=scan)
+        steps = [out]
+        lengths = torch.full((b,), s, dtype=torch.int32, device="cuda")
+        for i in range(8):
+            out, cache, lengths = lm.decode_step(
+                params, cfg, toks[:, s + i:s + i + 1], lengths, cache,
+                mlstm_scan=scan)
+            steps.append(out)
+        logits[path] = torch.cat(steps, dim=1)
+        n = ms.mlstm_scan.launches - n0
+        print(f"model {path} path: prefill {s} + 8 decode steps, "
+              f"{n} mlstm_scan launches", flush=True)
+    a, w = logits["kernel"], logits["plain"]
+    err = float((a - w).abs().max())
+    mean = float((a - w).abs().mean())
+    ok = bool(torch.isfinite(a).all()) and a.shape == (b, 9, cfg.vocab) \
+        and err <= LOGITS_TOL
+    print(f"model kernel vs plain logits over 9 steps: max abs diff {err:.4g} "
+          f"(mean {mean:.3g}, largest logit {float(w.abs().max()):.3g}), "
+          f"tolerance {LOGITS_TOL}: {'ok' if ok else 'FAILED'}", flush=True)
+    if not ok:
+        raise AssertionError("model logits: kernel path != plain path")
+    # Where a prefill's and a decode step's time goes.
+    p = params.tree()
+    x = lm._embed_tokens(p, cfg, toks[:, :s])
+    cache = lm.init_cache(cfg, b, 512, "cuda")
+    n0 = ms.mlstm_scan.launches
+    timed_blocks(lm, p, cfg, x, cache, lm.BLOCK_PREFILL)      # warm
+    x, cache, pre = timed_blocks(lm, p, cfg, x, cache, lm.BLOCK_PREFILL)
+    per_prefill = (ms.mlstm_scan.launches - n0) // 2
+    x1 = lm._embed_tokens(p, cfg, toks[:, s:s + 1])
+    n0 = ms.mlstm_scan.launches
+    _, _, dec = timed_blocks(lm, p, cfg, x1, cache, lm.BLOCK_DECODE)
+    per_decode = ms.mlstm_scan.launches - n0
+    for name, spent, n in (("prefill", pre, per_prefill),
+                           ("decode", dec, per_decode)):
+        tot = sum(spent.values())
+        print(f"blocks of one {name}: " + ", ".join(
+            f"{k} {v * 1e3:.2f} ms ({v / tot:.1%})"
+            for k, v in spent.items())
+              + f"; {n} mlstm_scan launches", flush=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -324,6 +587,7 @@ def main() -> int:
     try:
         from repro_torch.core import simlock as sl
         from repro_torch.kernels import build, simstep
+        from repro_torch.kernels import mlstm_scan as ms
     except ImportError as e:
         print(f"chip_smoke: the port's package is missing ({e}); run from "
               f"the repository root", file=sys.stderr)
@@ -339,9 +603,14 @@ def main() -> int:
             for line in log.splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"  {name}: {line.strip()}")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
         phase_parity(sl, simstep)
         shape = phase_main_shape(sl, simstep)
         main_run = phase_main(sl, simstep)
+        mlstm = phase_mlstm(ms)
+        serve_run = phase_serve(ms)
+        phase_model(ms)
     except Exception:
         traceback.print_exc()
         return 1
@@ -352,6 +621,13 @@ def main() -> int:
         launches=main_run["launches"], max_abs_err=shape["max_abs_err"],
         ms=shape["ms"], plain_ms=shape["plain_ms"],
         bound_ms=shape["bound_ms"], bound_by=shape["bound_by"],
+        library_ms=None), dict(
+        name="mlstm_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/mlstm_scan.cu",
+        replaces="src/repro/kernels/mlstm_scan.py:68",
+        launches=serve_run["launches"], max_abs_err=mlstm["max_abs_err"],
+        ms=mlstm["ms"], plain_ms=mlstm["plain_ms"],
+        bound_ms=mlstm["bound_ms"], bound_by=mlstm["bound_by"],
         library_ms=None)]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -163,6 +163,10 @@ class LockPolicy:
     state_slots: tuple = ()
     #: sweep-axis name -> SimParams field (policy knobs as batch axes).
     sweep_axes: dict = {}
+    #: host-side admission-scheduler analogue (a
+    #: :mod:`repro_torch.core.asl_schedule` key); None when the policy
+    #: has no host counterpart.
+    host_scheduler: str = None
 
     def on_acquire(self, st, cfg, tb, pm, c, t, cond) -> None:
         raise NotImplementedError

@@ -10,6 +10,7 @@ from repro_torch.core.policies.base import (LockPolicy, QUEUED, deq, enq,
 @register
 class FifoPolicy(LockPolicy):
     name = "fifo"
+    host_scheduler = "fifo"
     state_slots = ("q", "q_head", "q_tail")
 
     def on_acquire(self, st, cfg, tb, pm, c, t, cond):

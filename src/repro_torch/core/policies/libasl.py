@@ -16,6 +16,7 @@ from repro_torch.core.policies.base import (LockPolicy, QUEUED, STANDBY,
 @register
 class LibASLPolicy(LockPolicy):
     name = "libasl"
+    host_scheduler = "asl"
     uses_standby = True
     param_slots = ("slo", "unit0")
     table_slots = ("big", "col.slo_scale")

@@ -17,6 +17,7 @@ from repro_torch.core.policies.base import (SPIN, LockPolicy, advance_key,
 @register
 class TasPolicy(LockPolicy):
     name = "tas"
+    host_scheduler = "greedy"
     param_slots = ("w_big",)
     table_slots = ("big",)
     sweep_axes = {"w_big": "w_big"}

@@ -47,24 +47,13 @@ from repro_torch.workloads import ARRIVALS, SERVICES
 from repro_torch.workloads import keys as wlk
 from repro_torch.workloads.generators import PRNGKey
 from repro_torch import faults as _faults  # noqa: F401  (ft_mask column)
+from repro_torch.device import resolve as _device
 
 POLICIES = policies.policy_ids()
 
 # Policies of the JAX package that this port does not run yet.
 _LATER_POLICIES = ("edf", "shfl", "dvfs_race", "ks_erew", "ks_crew",
                    "ks_jbsq")
-
-
-def _device(device) -> torch.device:
-    """``None`` means the CUDA device; there is no silent CPU fallback."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "repro_torch runs on a CUDA device by default and none is "
-                "available; pass device='cpu' to run the plain PyTorch "
-                "version on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 def _validate_config(cfg) -> None:

@@ -1,11 +1,12 @@
 """Workload layer of the port: the counter-based RNG and the workload-owned
 ``SimTables`` columns.
 
-Only what the closed-loop slice needs is here: :mod:`.generators` (ids,
-stream constants, threefry keys and uniforms), :mod:`.keys` (the Zipf
-sampler constants that ``build_params`` always computes), and the two
-per-core tenancy columns below, registered as the JAX package registers
-them.
+:mod:`.generators` (ids, stream constants, threefry keys and uniforms,
+and the host blocks of the serving sims: arrivals, service times,
+choices), :mod:`.traces` (a workload materialized as a trace),
+:mod:`.keys` (the Zipf sampler constants that ``build_params`` always
+computes), and the two per-core tenancy columns below, registered as the
+JAX package registers them.
 """
 
 from repro_torch.core.columns import ColumnSpec, register_column

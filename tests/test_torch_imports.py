@@ -33,6 +33,11 @@ def test_port_files_exist():
     for want in ("src/repro_torch/core/simlock.py",
                  "src/repro_torch/kernels/simstep.py",
                  "src/repro_torch/workloads/generators.py",
+                 "src/repro_torch/kernels/mlstm_scan.py",
+                 "src/repro_torch/models/xlstm.py",
+                 "src/repro_torch/models/lm.py",
+                 "src/repro_torch/serving/engine.py",
+                 "src/repro_torch/launch/serve.py",
                  "chip_smoke.py"):
         assert want in names
 
@@ -52,6 +57,19 @@ def test_port_imports_with_jax_and_repro_blocked():
             "st, _ = sl.sweep(sl.SimConfig(policy='libasl', "
             "sim_time_us=200.0), {'n_cores': [2, 8]}, device='cpu')\n"
             "assert int(st.events.min()) > 0\n"
+            "import torch\n"
+            "import repro_torch.kernels.mlstm_scan, repro_torch.kernels.ops\n"
+            "import repro_torch.core.asl_schedule\n"
+            "import repro_torch.workloads.traces\n"
+            "import repro_torch.serving.engine, repro_torch.launch.serve\n"
+            "from repro_torch.configs import registry\n"
+            "from repro_torch.models import lm\n"
+            "cfg = registry.get_tiny('xlstm-125m')\n"
+            "p = lm.init_params(cfg, 0, device='cpu')\n"
+            "logits, cache = lm.prefill(p, cfg, {'tokens': torch.ones("
+            "(2, 5), dtype=torch.long)}, lm.init_cache(cfg, 2, 8, 'cpu'))\n"
+            "assert logits.shape == (2, 1, cfg.vocab)\n"
+            "assert bool(torch.isfinite(logits).all())\n"
             "assert not any(m.split('.')[0] in ('jax', 'repro') "
             "for m, v in sys.modules.items() if v is not None)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
