@@ -26,14 +26,34 @@ Phases, each of which fails the script (non-zero exit, no result line):
    bar (``tests/test_kernels.py``: 10 x TOL on h, 1e-4 on C and n, 1e-5
    on m).  Time one launch at the serving shapes, with its bound.
 5. Serve xlstm-125m at its full config (130,425,648 parameters, bf16)
-   through ``repro_torch.launch.serve.main`` under the asl, fifo and
-   greedy schedulers, with the ``mlstm_scan`` launch counter set to 0
-   just before and read just after.
-6. The full-width model against its plain path on the card: prefill 256
-   tokens then 8 decode steps through the kernel and through the plain
-   version; logits within 10 x TOL[bf16] = 0.2.  Then where a prefill's
-   and a decode step's time goes, block by block.
-7. Print the kernel table (JSON) and, last, the device line.
+   through ``repro_torch.launch.serve.main``: one calibration, then the
+   asl, fifo and greedy schedulers on that cost model, with the
+   ``mlstm_scan`` launch counter set to 0 just before and read just
+   after.
+6. The full-width xLSTM model against its plain path on the card:
+   prefill 256 tokens then 8 decode steps through the kernel and through
+   the plain version; logits within 10 x TOL[bf16] = 0.2.  Then where a
+   prefill's and a decode step's time goes, block by block.
+7. Hold ``flash_attention`` against its plain version on the card (f32
+   and bf16, head dims 64 and 128, GQA groups 1 and 8, ragged S and T,
+   causal or not, window 0 or 64) within the JAX package's kernel bar
+   (TOL), then time it at the yi-6b prefill shape beside its bound, the
+   plain version and PyTorch's fused attention.
+8. The same for ``decode_attention`` (per-row lengths 1, 257, 511, T and
+   a mix, T of 512 and 300), timed at the yi-6b decode shape.
+9. yi-6b at its full config (6,061,035,520 parameters, f32 at rest, bf16
+   compute): a prefill of 8 x 256 tokens and 8 decode steps through the
+   kernels and through the plain versions, logits within 3 % of the
+   largest; then a prefill's and a decode step's time split into the
+   weight casts, projections, attention and FFN, and the card's busy
+   time in each from ``torch.profiler`` (the device idle share).
+10. Serve yi-6b: one calibration, then asl, fifo and greedy on that cost
+    model at a rate that puts half of the slot on prefill, TTFT SLO 4 x
+    the mean prompt's prefill, with both attention counters set to 0
+    just before and read just after; then the
+    ``python -m repro_torch.launch.serve --arch yi-6b`` CLI once at that
+    rate, in its own process.
+11. Print the kernel table (JSON), the card and, last, the device line.
 
 It exits non-zero when no CUDA device is present, and when the port's
 package is not next to it.
@@ -42,6 +62,7 @@ package is not next to it.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -53,6 +74,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12      # H100 SXM non-tensor f32 rate
+BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core rate
 
 # The serving path: xlstm-125m at its full config, the calibration's
 # shapes (launch/serve.py: batch 8, prefill chunk 256), and a Poisson
@@ -64,10 +86,25 @@ ARCH = "xlstm-125m"
 N_PARAMS = 130_425_648
 SERVE_BATCH, SERVE_CHUNK = 8, 256
 SERVE_ARGS = ["--rate", "0.25", "--duration", "600", "--slo-ttft", "8"]
+SCHEDULERS = ("asl", "fifo", "greedy")
 # The JAX package's kernel bar (tests/test_kernels.py: TOL, and 10 x TOL
 # on h), and the model's logits against its plain path at 10 x TOL[bf16].
 MLSTM_TOL = {"float32": 3e-4, "bfloat16": 0.2}
 LOGITS_TOL = 0.2
+
+# The yi-6b serving path: its full config, the same calibration shapes,
+# and a stream whose rate the calibration sets (half of the engine's slot
+# on prefill) with a TTFT SLO of 4 x the mean prompt's prefill.  The
+# attention kernels are held to the JAX package's kernel bar
+# (tests/test_kernels.py: TOL, absolute and relative); the model's
+# logits, kernel path against plain path, to 3 % of the largest logit
+# (the bar tests/test_torch_yi.py holds the model to against JAX in
+# bf16).
+YI = "yi-6b"
+YI_PARAMS = 6_061_035_520
+YI_DURATION_S = 600.0
+YI_LOGITS_TOL = 0.03
+ATTN_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 
 # Fig1 calibration (benchmarks/paper_figs.py): 4 big + 4 little cores, CS
 # 3 us, non-CS 1 us, inter-epoch 5 us, CS ratio 3.75, non-CS ratio 1.8.
@@ -445,54 +482,46 @@ def phase_mlstm(ms) -> dict:
             "bound_ms": bound, "bound_by": by}
 
 
-def phase_serve(ms) -> dict:
-    """The serving path: xlstm-125m at full config under the three
-    schedulers, each calibrating on the card and answering a Poisson
-    stream; the kernel counter is read just after."""
+def check_serve_runs(arch, n, dtype, cost, runs) -> None:
+    """Print each scheduler's row; fail on a run that answered nothing or
+    gave a metric that is not finite."""
     import math
-    from repro_torch.configs import registry
-    from repro_torch.launch import serve
-    from repro_torch.models import lm
-    import numpy as np
-    cfg = registry.get(ARCH)[0]
-    n = sum(int(np.prod(ps.shape)) for ps in _leaves(lm.build_schema(cfg)))
-    if n != N_PARAMS or cfg.dtype != "bfloat16":
-        raise AssertionError(f"{ARCH}: {n} parameters in {cfg.dtype}")
-    ms.mlstm_scan.launches = 0
-    runs = {}
-    for sched in ("asl", "fifo", "greedy"):
-        runs[sched] = serve.main(["--arch", ARCH, "--scheduler", sched]
-                                 + SERVE_ARGS)
-    launches = ms.mlstm_scan.launches
     for sched, m in runs.items():
-        print(f"serve {ARCH} ({n} parameters, {cfg.dtype}) {sched}: "
-              f"decode {m['decode_step_s'] * 1e3:.2f} ms, prefill chunk "
-              f"{m['prefill_chunk_s'] * 1e3:.2f} ms, n={m['n']}, "
+        print(f"serve {arch} ({n} parameters, {dtype}) {sched}: "
+              f"decode {cost['decode_step_s'] * 1e3:.2f} ms, prefill chunk "
+              f"{cost['prefill_chunk_s'] * 1e3:.2f} ms, n={m['n']}, "
               f"tok/s={m.get('throughput_tok_s', float('nan')):.1f}, "
               f"TTFT P99 {m.get('ttft_p99', float('nan')) * 1e3:.1f} ms, "
               f"ITL P99 {m.get('itl_p99', float('nan')) * 1e3:.1f} ms, "
               f"violations {m.get('slo_violation_rate', float('nan')):.1%}",
               flush=True)
         if m["n"] <= 0 or not all(math.isfinite(m[k]) for k in (
-                "throughput_tok_s", "ttft_p99", "itl_p99",
-                "decode_step_s", "prefill_chunk_s")):
+                "throughput_tok_s", "ttft_p99", "itl_p99")):
             raise AssertionError(f"serve {sched}: bad metrics {m}")
-    print(f"serve: {launches} mlstm_scan launches over the three runs",
+
+
+def phase_serve(ms) -> dict:
+    """The serving path: xlstm-125m at full config, calibrated once on the
+    card, then the asl, fifo and greedy schedulers each answering the
+    same Poisson stream on that cost model; the kernel counter is read
+    just after."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    cfg = registry.get(ARCH)[0]
+    n = lm.n_params(cfg)
+    if n != N_PARAMS or cfg.dtype != "bfloat16":
+        raise AssertionError(f"{ARCH}: {n} parameters in {cfg.dtype}")
+    ms.mlstm_scan.launches = 0
+    out = serve.main(["--arch", ARCH, "--scheduler", *SCHEDULERS]
+                     + SERVE_ARGS)
+    launches = ms.mlstm_scan.launches
+    check_serve_runs(ARCH, n, cfg.dtype, out, out["by_scheduler"])
+    print(f"serve: {launches} mlstm_scan launches (one calibration)",
           flush=True)
     if launches <= 0:
         raise AssertionError("the serving path launched no mlstm_scan")
     return {"launches": launches}
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, list):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 def timed_blocks(lm, p, cfg, x, cache, table, **kw) -> tuple:
@@ -575,6 +604,459 @@ def phase_model(ms) -> None:
               + f"; {n} mlstm_scan launches", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# yi-6b: flash_attention, decode_attention, the model and its server
+# ---------------------------------------------------------------------------
+
+def attn_tol(dtype) -> float:
+    return ATTN_TOL[str(dtype).replace("torch.", "")]
+
+
+def library_attention(q, k, v, causal):
+    """PyTorch's fused attention on the same inputs: the yardstick timed
+    beside each kernel (``library_ms``); the port never calls it."""
+    import torch.nn.functional as F
+    return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                          enable_gqa=True)
+
+
+def median_ms(fn, reps=10) -> tuple:
+    """(median, all) of 3 timings of ``reps`` back-to-back calls, in ms
+    per call, after 3 warm calls."""
+    for _ in range(3):
+        fn()
+    times = [cuda_ms(lambda: [fn() for _ in range(reps)]) / reps
+             for _ in range(3)]
+    return sorted(times)[1], times
+
+
+def bound(n_bytes, flops) -> tuple:
+    """The least time of the work: bytes over the memory rate or bf16
+    tensor-core operations over their peak, the larger."""
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_OPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                           "operations")
+
+
+def flash_case(fa, gen, b, h, kh, s, t, dh, dtype, causal, window) -> tuple:
+    """One launch against the plain version; -> (max abs err over rows
+    with a valid key, ok)."""
+    import torch
+    f = lambda *shape: torch.randn(*shape, generator=gen, device="cuda") \
+        .to(dtype)
+    q, k, v = f(b, h, s, dh), f(b, kh, t, dh), f(b, kh, t, dh)
+    n0 = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_ref(q, k, v, causal=causal, window=window)
+    seen = torch.isfinite(want)          # rows with no valid key are NaN
+    a, w, tol = got.float()[seen], want.float()[seen], attn_tol(dtype)
+    err = float((a - w).abs().max()) if a.numel() else 0.0
+    ok = (torch.allclose(a, w, atol=tol, rtol=tol)
+          and bool(torch.isfinite(got).all())
+          and fa.flash_attention.launches == n0 + 1
+          and got.shape == q.shape and got.dtype == q.dtype)
+    return err, ok
+
+
+def phase_flash(fa) -> dict:
+    """flash_attention == its plain version on the card over the sweep,
+    then the serving shape timed against its bound, the plain version and
+    PyTorch's fused attention."""
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    n_bad = n_cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for dh in (64, 128):
+            for g in (1, 8):
+                for s, t in ((128, 128), (200, 200), (1, 200), (200, 1),
+                             (77, 300)):
+                    for causal in (True, False):
+                        for window in (0, 64):
+                            err, ok = flash_case(fa, gen, 2, 8, 8 // g, s,
+                                                 t, dh, dtype, causal,
+                                                 window)
+                            n_cases += 1
+                            n_bad += not ok
+                            if not ok:
+                                print(f"flash_attention {dtype} dh={dh} "
+                                      f"g={g} S={s} T={t} causal={causal} "
+                                      f"window={window}: max abs err "
+                                      f"{err:.3g} OVER TOLERANCE",
+                                      flush=True)
+    print(f"flash_attention sweep: {n_cases - n_bad}/{n_cases} cases "
+          f"within tolerance (f32/bf16 x dh 64/128 x g 1/8 x S,T in "
+          f"128/128 200/200 1/200 200/1 77/300 x causal x window 0/64)",
+          flush=True)
+    if n_bad:
+        raise AssertionError(f"flash_attention != plain in {n_bad} cases")
+    # The serving shape, in the model's layout (transposed views).
+    b, h, kh, s, dh = SERVE_BATCH, 32, 4, SERVE_CHUNK, 128
+    f = lambda *shape: torch.randn(*shape, generator=gen, device="cuda") \
+        .to(torch.bfloat16)
+    q, k, v = (x.transpose(1, 2) for x in (f(b, s, h, dh), f(b, s, kh, dh),
+                                            f(b, s, kh, dh)))
+    kernel_ms, times = median_ms(
+        lambda: fa.flash_attention(q, k, v, causal=True))
+    got = fa.flash_attention(q, k, v, causal=True)
+    out = {}
+    plain_ms = cuda_ms(lambda: out.update(
+        want=fa.flash_attention_ref(q, k, v, causal=True)))
+    err = float((got.float() - out["want"].float()).abs().max())
+    qc, kc, vc = (x.contiguous() for x in (q, k, v))
+    lib_ms, _ = median_ms(lambda: library_attention(qc, kc, vc, True))
+    n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    flops = 2 * 2 * b * h * s * (s + 1) // 2 * dh
+    bnd, by = bound(n_bytes, flops)
+    print(f"flash_attention serving shape B={b} H={h} K={kh} S=T={s} "
+          f"dh={dh} bf16 causal: kernel {kernel_ms:.4f} ms/launch (of "
+          f"{[round(x, 4) for x in times]}), plain {plain_ms:.3f} ms, "
+          f"library {lib_ms:.4f} ms, bound {bnd:.5f} ms ({by}; "
+          f"{n_bytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), max abs err "
+          f"{err:.3g}", flush=True)
+    if err > attn_tol(torch.bfloat16):
+        raise AssertionError("flash_attention != plain at the serving shape")
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "max_abs_err": err,
+            "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms}
+
+
+def decode_case(da, gen, b, h, kh, t, dh, dtype, lengths) -> tuple:
+    """One launch against the plain version, the caches as transposed
+    views of [B,T,K,dh] (the model's layout); -> (max abs err, ok)."""
+    import torch
+    f = lambda *shape: torch.randn(*shape, generator=gen, device="cuda") \
+        .to(dtype)
+    q = f(b, h, dh)
+    kc, vc = (f(b, t, kh, dh).transpose(1, 2) for _ in range(2))
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    n0 = da.decode_attention.launches
+    got = da.decode_attention(q, kc, vc, lens)
+    torch.cuda.synchronize()
+    want = da.decode_attention_ref(q, kc, vc, lens)
+    err = float((got.float() - want.float()).abs().max())
+    tol = attn_tol(dtype)
+    ok = (torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
+          and da.decode_attention.launches == n0 + 1
+          and got.shape == q.shape and got.dtype == q.dtype)
+    return err, ok
+
+
+def phase_decode(da) -> dict:
+    """decode_attention == its plain version on the card over the sweep,
+    then the serving shape timed against its bound, the plain version and
+    PyTorch's fused attention."""
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    n_bad = n_cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for dh in (64, 128):
+            for g in (1, 8):
+                for t in (512, 300):
+                    mix = [1, 257, 511, t, 64, 65, 2, t - 1]
+                    for lengths in ([1] * 8, [257] * 8, [min(511, t)] * 8,
+                                    [t] * 8, [min(x, t) for x in mix]):
+                        err, ok = decode_case(da, gen, 8, 32, 32 // g, t,
+                                              dh, dtype, lengths)
+                        n_cases += 1
+                        n_bad += not ok
+                        if not ok:
+                            print(f"decode_attention {dtype} dh={dh} g={g} "
+                                  f"T={t} lengths={lengths}: max abs err "
+                                  f"{err:.3g} OVER TOLERANCE", flush=True)
+    print(f"decode_attention sweep: {n_cases - n_bad}/{n_cases} cases "
+          f"within tolerance (f32/bf16 x dh 64/128 x g 1/8 x T 512/300 x "
+          f"lengths 1, 257, 511, T and a mix per row)", flush=True)
+    if n_bad:
+        raise AssertionError(f"decode_attention != plain in {n_bad} cases")
+    b, h, kh, t, dh, n = SERVE_BATCH, 32, 4, 2 * SERVE_CHUNK, 128, 257
+    f = lambda *shape: torch.randn(*shape, generator=gen, device="cuda") \
+        .to(torch.bfloat16)
+    q = f(b, h, dh)
+    kc, vc = (f(b, t, kh, dh).transpose(1, 2) for _ in range(2))
+    lens = torch.full((b,), n, dtype=torch.int32, device="cuda")
+    kernel_ms, times = median_ms(
+        lambda: da.decode_attention(q, kc, vc, lens), reps=100)
+    got = da.decode_attention(q, kc, vc, lens)
+    out = {}
+    plain_ms = cuda_ms(lambda: out.update(
+        want=da.decode_attention_ref(q, kc, vc, lens)))
+    err = float((got.float() - out["want"].float()).abs().max())
+    q4 = q[:, :, None]
+    kv, vv = (x[:, :, :n].contiguous() for x in (kc, vc))
+    lib_ms, _ = median_ms(lambda: library_attention(q4, kv, vv, False),
+                          reps=100)
+    n_bytes = 2 * (2 * q.numel() + 2 * b * kh * n * dh)
+    flops = 2 * 2 * b * h * n * dh
+    bnd, by = bound(n_bytes, flops)
+    print(f"decode_attention serving shape B={b} H={h} K={kh} T={t} "
+          f"length {n} dh={dh} bf16: kernel {kernel_ms:.4f} ms/launch (of "
+          f"{[round(x, 4) for x in times]}), plain {plain_ms:.3f} ms, "
+          f"library {lib_ms:.4f} ms, bound {bnd:.6f} ms ({by}; "
+          f"{n_bytes / 1e6:.2f} MB), max abs err {err:.3g}", flush=True)
+    if err > attn_tol(torch.bfloat16):
+        raise AssertionError("decode_attention != plain at the serving "
+                             "shape")
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "max_abs_err": err,
+            "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms}
+
+
+def yi_steps(lm, params, cfg, toks, n_decode, **kernels) -> tuple:
+    """A prefill of SERVE_CHUNK tokens of every sequence, then
+    ``n_decode`` decode steps; -> (logits [B, 1 + n_decode, V], the
+    prefill's seconds, the mean decode step's seconds)."""
+    import torch
+    b, s = toks.shape[0], SERVE_CHUNK
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, cache = lm.prefill(params, cfg, {"tokens": toks[:, :s]},
+                            lm.init_cache(cfg, b, 2 * s, "cuda"), **kernels)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    steps = [out]
+    lengths = torch.full((b,), s, dtype=torch.int32, device="cuda")
+    t0 = time.perf_counter()
+    for i in range(n_decode):
+        out, cache, lengths = lm.decode_step(
+            params, cfg, toks[:, s + i:s + i + 1], lengths, cache, **kernels)
+        steps.append(out)
+    torch.cuda.synchronize()
+    return torch.cat(steps, dim=1), t_pre, \
+        (time.perf_counter() - t0) / n_decode
+
+
+def timed_attn_layer(layers, lp, x, cfg, cache, spent, *, lengths=None):
+    """One attention block, as ``layers.attn_block_prefill`` /
+    ``attn_block_decode`` run it, cut into segments bracketed by
+    synchronisations: the f32 -> bf16 weight casts, the projections (q,
+    k, v with RoPE, and the output), attention (the cache write and the
+    kernel), and the FFN (norm, gated FFN, residual).  Seconds add to
+    ``spent``; -> (x, cache)."""
+    import torch
+    dtype = cfg.compute_dtype()
+
+    def seg(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
+        return r
+
+    cast = lambda t: {k: cast(v) if isinstance(v, dict) else v.to(dtype)
+                      for k, v in t.items()}
+    pc = seg("casts", lambda: cast(lp))
+    b, s = x.shape[:2]
+    positions = (lengths[:, None].to(torch.int32) if lengths is not None
+                 else torch.arange(s, dtype=torch.int32,
+                                   device=x.device)[None].expand(b, s))
+    q, k, v = seg("projections", lambda: layers._qkv(
+        pc, layers.rms_norm(x, lp["ln1"], cfg.norm_eps), cfg, positions,
+        dtype))
+    if lengths is None:
+        new = seg("attention", lambda: {n: torch.cat(
+            [t, cache[n][:, s:]], dim=1) for n, t in (("k", k), ("v", v))})
+        out = seg("attention", lambda: layers.attention(
+            q, k, v, causal=True, dtype=dtype))
+    else:
+        slot = torch.remainder(lengths[0].long(), cache["k"].shape[1])
+        new = seg("attention", lambda: {n: cache[n].index_copy(
+            1, slot.reshape(1), t) for n, t in (("k", k), ("v", v))})
+        n = torch.clamp(lengths[0] + 1, max=cache["k"].shape[1])
+        out = seg("attention", lambda: layers.decode_attention(
+            q, new["k"], new["v"], n.expand(b), dtype=dtype))
+    x = seg("projections", lambda: x + layers.ein(
+        "bshk,hkd->bsd", out, pc["wo"], dtype=dtype))
+    x = seg("ffn", lambda: x + layers.mlp_apply(
+        pc["mlp"], layers.rms_norm(x, lp["ln2"], cfg.norm_eps),
+        cfg.activation, dtype))
+    return x, new
+
+
+def device_busy(fn, n) -> tuple:
+    """(wall ms, device ms, idle share) of one call of ``fn``: the card's
+    kernel and copy time from ``torch.profiler`` over ``n`` calls (one
+    stream, so the events do not overlap), against the wall time of ``n``
+    more calls with the profiler off."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3 / n
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / n
+    return wall, busy, 1 - busy / wall
+
+
+def phase_yi_model(fa, da) -> dict:
+    """yi-6b at its full config on the card: the parameter count, a
+    prefill and 8 decode steps through the kernels and through the plain
+    versions (logits held together), then where a prefill's and a decode
+    step's time goes.  -> the parameters, for the serve phase."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models import layers, lm
+    cfg = registry.get(YI)[0]
+    n = lm.n_params(cfg)
+    if n != YI_PARAMS or cfg.dtype != "bfloat16":
+        raise AssertionError(f"{YI}: {n} parameters in {cfg.dtype}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"{YI}: {n} parameters ({cfg.param_dtype} at rest, {cfg.dtype} "
+          f"compute), init {time.perf_counter() - t0:.3f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    b, s, nd = SERVE_BATCH, SERVE_CHUNK, 8
+    toks = torch.randint(0, cfg.vocab, (b, s + nd), generator=gen,
+                         device="cuda")
+    yi_steps(lm, params, cfg, toks, 1)                       # warm
+    logits, times = {}, {}
+    plain = dict(flash_attention=fa.flash_attention_ref,
+                 decode_attention=da.decode_attention_ref)
+    for path, kernels in (("kernel", {}), ("plain", plain)):
+        n0 = (fa.flash_attention.launches, da.decode_attention.launches)
+        logits[path], t_pre, t_dec = yi_steps(lm, params, cfg, toks, nd,
+                                              **kernels)
+        times[path] = (t_pre, t_dec)
+        print(f"model {YI} {path} path: prefill {b} x {s} tokens "
+              f"{t_pre * 1e3:.2f} ms, decode step {t_dec * 1e3:.2f} ms "
+              f"(mean of {nd}); launches flash_attention "
+              f"{fa.flash_attention.launches - n0[0]}, decode_attention "
+              f"{da.decode_attention.launches - n0[1]}", flush=True)
+    a, w = logits["kernel"], logits["plain"]
+    err = float((a - w).abs().max())
+    mean = float((a - w).abs().mean())
+    tol = YI_LOGITS_TOL * float(w.abs().max())
+    ok = bool(torch.isfinite(a).all()) and a.shape == (b, 1 + nd, cfg.vocab) \
+        and err <= tol
+    print(f"model {YI} kernel vs plain logits over {1 + nd} steps: max abs "
+          f"diff {err:.4g} (mean {mean:.3g}, largest logit "
+          f"{float(w.abs().max()):.4g}), tolerance {tol:.4g} "
+          f"({YI_LOGITS_TOL:.0%} of the largest): "
+          f"{'ok' if ok else 'FAILED'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{YI} logits: kernel path != plain path")
+    # Where a prefill's and a decode step's time goes.
+    p = params.tree()
+    per_layer = lm._layers(p, cfg)
+    for name in ("prefill", "decode"):
+        spent = {}
+        x = lm._embed_tokens(p, cfg, toks[:, :s] if name == "prefill"
+                             else toks[:, s:s + 1])
+        cache = lm._layer_caches(lm.init_cache(cfg, b, 2 * s, "cuda"), cfg)
+        lengths = None if name == "prefill" else \
+            torch.full((b,), s, dtype=torch.int32, device="cuda")
+        for (_, lp), lc in zip(per_layer, cache):
+            x, _ = timed_attn_layer(layers, lp, x, cfg, lc, spent,
+                                    lengths=lengths)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lm._unembed(p, cfg, x[:, -1:])
+        torch.cuda.synchronize()
+        spent["unembed"] = time.perf_counter() - t0
+        tot = sum(spent.values())
+        print(f"{YI} one {name}, {cfg.n_layers} blocks cut by "
+              f"synchronisations ({tot * 1e3:.2f} ms in all; uncut "
+              f"{times['kernel'][name == 'decode'] * 1e3:.2f} ms): "
+              + ", ".join(f"{k} {v * 1e3:.2f} ms ({v / tot:.1%})"
+                          for k, v in spent.items()), flush=True)
+    # How much of a step the card is busy.
+    _, cache = lm.prefill(params, cfg, {"tokens": toks[:, :s]},
+                          lm.init_cache(cfg, b, 2 * s, "cuda"))
+    lengths = torch.full((b,), s, dtype=torch.int32, device="cuda")
+    for name, fn, n in (
+            ("prefill", lambda: lm.prefill(
+                params, cfg, {"tokens": toks[:, :s]},
+                lm.init_cache(cfg, b, 2 * s, "cuda")), 2),
+            ("decode step", lambda: lm.decode_step(
+                params, cfg, toks[:, s:s + 1], lengths, cache), 3)):
+        wall, busy, idle = device_busy(fn, n)
+        print(f"{YI} one {name}: {wall:.2f} ms wall, {busy:.2f} ms of "
+              f"kernels and copies on the card (torch.profiler, mean of "
+              f"{n}), device idle share {idle:.1%}", flush=True)
+    print(f"{YI} model phase: max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return params
+
+
+def phase_yi_serve(fa, da, params) -> dict:
+    """The yi-6b serving path: calibrate once on the card, then asl, fifo
+    and greedy answer one Poisson stream on that cost model, at a rate
+    that puts half of the slot on prefill and a TTFT SLO of 4 x the mean
+    prompt's prefill; kernel counters set to 0 just before and read just
+    after.  Then the CLI once, in its own process, at that rate."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    cfg = registry.get(YI)[0]
+    fa.flash_attention.launches = 0
+    da.decode_attention.launches = 0
+    cost = serve.calibrated_cost(cfg, batch=SERVE_BATCH,
+                                 prefill_chunk=SERVE_CHUNK, device="cuda",
+                                 params=params)
+    chunks = sum(-(-n // SERVE_CHUNK) for n in serve.PROMPT_LENS) \
+        / len(serve.PROMPT_LENS)
+    rate = 0.5 / (chunks * cost.prefill_chunk_s)
+    slo = 4 * chunks * cost.prefill_chunk_s
+    runs = {sched: serve.serve(cost, sched, rate=rate,
+                               duration=YI_DURATION_S, slo_ttft=slo)
+            for sched in SCHEDULERS}
+    launches = {"flash_attention": fa.flash_attention.launches,
+                "decode_attention": da.decode_attention.launches}
+    print(f"serve {YI}: calibrated prefill chunk "
+          f"{cost.prefill_chunk_s * 1e3:.2f} ms, decode step "
+          f"{cost.decode_step_s * 1e3:.2f} ms; Poisson {rate:.4f} "
+          f"requests/s (0.5 / ({chunks:.3f} chunks x prefill chunk)) for "
+          f"{YI_DURATION_S:.0f} s, TTFT SLO {slo:.3f} s", flush=True)
+    check_serve_runs(YI, lm.n_params(cfg), cfg.dtype,
+                     {"decode_step_s": cost.decode_step_s,
+                      "prefill_chunk_s": cost.prefill_chunk_s}, runs)
+    print(f"serve {YI}: launches {launches} (one calibration: 6 prefills "
+          f"and 21 decode steps of {cfg.n_layers} layers)", flush=True)
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"the {YI} serving path launched no "
+                             f"attention kernel: {launches}")
+    return launches, rate, slo
+
+
+def phase_yi_cli(rate, slo) -> None:
+    """``python -m repro_torch.launch.serve --arch yi-6b`` once, in its own
+    process, at the serve phase's rate and SLO: it calibrates on the card
+    and prints each scheduler's row."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "yi-6b", "--rate", f"{rate:.6f}", "--duration",
+           f"{YI_DURATION_S:.0f}", "--slo-ttft", f"{slo:.6f}",
+           "--scheduler", *SCHEDULERS]
+    print("$ " + " ".join(cmd[1:]), flush=True)
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=600, env={**os.environ,
+                                           "PYTHONPATH": str(ROOT / "src")})
+    for line in res.stdout.splitlines():
+        print(f"  {line}")
+    print(f"  (exit {res.returncode} in {time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    if res.returncode != 0 or res.stdout.count("scheduler=") != 3:
+        print(res.stderr[-4000:], file=sys.stderr)
+        raise AssertionError(f"the {YI} serve CLI failed")
+
+
 def main() -> int:
     try:
         import torch
@@ -588,6 +1070,8 @@ def main() -> int:
         from repro_torch.core import simlock as sl
         from repro_torch.kernels import build, simstep
         from repro_torch.kernels import mlstm_scan as ms
+        from repro_torch.kernels import decode_attention as da
+        from repro_torch.kernels import flash_attention as fa
     except ImportError as e:
         print(f"chip_smoke: the port's package is missing ({e}); run from "
               f"the repository root", file=sys.stderr)
@@ -611,6 +1095,13 @@ def main() -> int:
         mlstm = phase_mlstm(ms)
         serve_run = phase_serve(ms)
         phase_model(ms)
+        flash = phase_flash(fa)
+        dec = phase_decode(da)
+        params = phase_yi_model(fa, da)
+        yi_launches, rate, slo = phase_yi_serve(fa, da, params)
+        del params
+        torch.cuda.empty_cache()
+        phase_yi_cli(rate, slo)
     except Exception:
         traceback.print_exc()
         return 1
@@ -628,7 +1119,17 @@ def main() -> int:
         launches=serve_run["launches"], max_abs_err=mlstm["max_abs_err"],
         ms=mlstm["ms"], plain_ms=mlstm["plain_ms"],
         bound_ms=mlstm["bound_ms"], bound_by=mlstm["bound_by"],
-        library_ms=None)]
+        library_ms=None)] + [dict(
+        name=name, route="cuda",
+        source=f"src/repro_torch/kernels/csrc/{name}.cu", replaces=where,
+        launches=yi_launches[name], max_abs_err=r["max_abs_err"],
+        ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+        bound_by=r["bound_by"], library_ms=r["library_ms"])
+        for name, where, r in (
+            ("flash_attention", "src/repro/kernels/flash_attention.py:94",
+             flash),
+            ("decode_attention", "src/repro/kernels/decode_attention.py:70",
+             dec))]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

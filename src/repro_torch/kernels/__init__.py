@@ -5,6 +5,13 @@
 * :mod:`.mlstm_scan` — the mLSTM matrix-memory scan (replaces the TPU
   kernel ``repro/kernels/mlstm_scan.py::mlstm_scan``); its plain version
   is in :mod:`.ref`, and :mod:`.ops` dispatches the model layers to it.
+* :mod:`.flash_attention` — forward attention of a prefill (replaces the
+  TPU kernel ``repro/kernels/flash_attention.py::flash_attention``).
+* :mod:`.decode_attention` — one decode step's attention against the KV
+  cache (replaces the TPU kernel
+  ``repro/kernels/decode_attention.py::decode_attention``).
+  Their plain versions are in :mod:`.ref`, and :mod:`.ops` dispatches the
+  attention layers to them.
 * :mod:`.build` — builds ``csrc/*.cu`` with ``nvcc`` at first use and
   loads them with ``ctypes``.
 """

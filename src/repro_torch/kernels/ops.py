@@ -4,12 +4,32 @@ Each entry point takes the JAX package's layout and sends its tensors to
 the kernel's wrapper, which launches the CUDA kernel on CUDA tensors (for
 every shape the kernel takes: unlike the reference's dispatch there is no
 small-shape detour to the oracle) and runs the plain version on CPU
-tensors.  The mLSTM block calls :func:`mlstm_scan`.
+tensors.  The mLSTM block calls :func:`mlstm_scan`; the attention layers
+call :func:`flash_attention` (prefill) and :func:`decode_attention`
+(decode).
 """
 
 from __future__ import annotations
 
+import torch
+
+from repro_torch.kernels import decode_attention as _decode
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import mlstm_scan as _mlstm
+
+
+def flash_attention(q, k, v, *, causal=True, window=0):
+    """q: [B,H,S,dh]; k,v: [B,K,T,dh] -> [B,H,S,dh], laid out like q.
+    Strided views are taken as they are (the head dim contiguous): the
+    model's [B,S,H,dh] tensors arrive transposed, not copied."""
+    return _flash.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def decode_attention(q, k_cache, v_cache, lengths):
+    """q: [B,H,dh]; caches: [B,K,T,dh] (strided views taken as they are);
+    lengths: [B], the valid leading slots of each row -> [B,H,dh]."""
+    return _decode.decode_attention(q, k_cache, v_cache,
+                                    lengths.to(torch.int32))
 
 
 def mlstm_scan(q, k, v, i_gate, f_gate, carry=None):

@@ -1,10 +1,56 @@
 """Plain PyTorch versions of the port's kernels that live outside their
 wrapper module: the oracles the CPU tests hold against the JAX package
-and that ``chip_smoke.py`` holds the CUDA kernels against on the card."""
+and that ``chip_smoke.py`` holds the CUDA kernels against on the card.
+They keep the layouts and signatures of the JAX package's
+``repro/kernels/ref.py``."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0):
+    """q: [B,H,S,dh]; k,v: [B,K,T,dh] (GQA: H % K == 0) -> [B,H,S,dh].
+
+    f32 scores, softmax and P.V; masked scores are ``-inf`` (a row with no
+    valid key comes out NaN); the result in q's dtype."""
+    b, h, s, dh = q.shape
+    kh, t = k.shape[1], k.shape[2]
+    g = h // kh
+    qf = q.float().reshape(b, kh, g, s, dh)
+    scores = torch.einsum("bkgsd,bktd->bkgst", qf, k.float()) \
+        / float(np.sqrt(dh))
+    iq = torch.arange(s, device=q.device)[:, None]
+    jk = torch.arange(t, device=q.device)[None, :]
+    mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = jk <= iq
+        if window:
+            mask = mask & (jk > iq - window)
+    scores = scores.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,bktd->bkgsd", probs, v.float())
+    return out.reshape(b, h, s, dh).to(q.dtype)
+
+
+def decode_attention_ref(q, k_cache, v_cache, lengths):
+    """q: [B,H,dh]; caches: [B,K,T,dh]; lengths: [B] -> [B,H,dh].
+
+    The first ``lengths[b]`` slots of row b are valid; f32 throughout,
+    masked scores ``-inf``; the result in q's dtype."""
+    b, h, dh = q.shape
+    kh, t = k_cache.shape[1], k_cache.shape[2]
+    g = h // kh
+    qf = q.float().reshape(b, kh, g, dh)
+    scores = torch.einsum("bkgd,bktd->bkgt", qf, k_cache.float()) \
+        / float(np.sqrt(dh))
+    valid = torch.arange(t, device=q.device)[None, :] \
+        < lengths.to(q.device)[:, None]                          # [B,T]
+    scores = scores.masked_fill(~valid[:, None, None, :], float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgt,bktd->bkgd", probs, v_cache.float())
+    return out.reshape(b, h, dh).to(q.dtype)
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:

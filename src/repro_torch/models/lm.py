@@ -1,59 +1,78 @@
 """The LM of the port: schema-driven parameters, forward / prefill / decode.
 
 A :class:`~repro_torch.models.config.ModelConfig` picks a mixer per layer
-from its block pattern.  The port runs the xLSTM family so far
-(``mlstm`` / ``slstm`` blocks, unscanned mixed stacks, token inputs); any
-other block kind, a scanned uniform stack or a modality frontend raises
+from its block pattern.  The port runs full attention (``attn``, the
+dense family) and the xLSTM family (``mlstm`` / ``slstm``) so far, on
+token inputs; any other block kind or a modality frontend raises
 ``NotImplementedError`` naming it.
 
 Parameters live in :class:`Model`, an ``nn.Module`` whose parameter names
-mirror the JAX package's tree (``embed``, ``final_ln``, ``unembed``,
-``blocks.<i>.<leaf>``, ``blocks.<i>.mlp.<leaf>``).  The step functions
-take the module (or the nested dict :meth:`ParamTree.tree` returns) and
-work on plain tensors, as the reference's functions work on pytrees.
-:func:`params_from_reference` and :func:`cache_from_reference` /
-:func:`cache_to_reference` carry the JAX package's parameters and caches
-across as numpy trees.
+mirror the JAX package's tree (``embed``, ``final_ln``, ``unembed``, and
+``blocks.<i>.<leaf>`` for a mixed stack).  A uniform stack with
+``scan_layers`` keeps the reference's scanned layout: each leaf under
+``layers.<leaf>`` (``layers.mlp.<leaf>``) stacked with a leading
+``n_layers`` axis, and its cache one dict of stacked leaves.  The step
+functions loop over the layers, taking each layer's parameters as views
+of the stacked leaves.  They take the module (or the nested dict
+:meth:`ParamTree.tree` returns) and work on plain tensors, as the
+reference's functions work on pytrees.  :func:`params_from_reference`
+and :func:`cache_from_reference` / :func:`cache_to_reference` carry the
+JAX package's parameters and caches across as numpy trees.
+
+The step functions take keyword arguments naming another implementation
+of a kernel's function (``mlstm_scan``, ``flash_attention``,
+``decode_attention``); by default each block calls the kernel's dispatch
+in :mod:`repro_torch.kernels.ops`.
 """
 
 from __future__ import annotations
+
+from functools import partial
 
 import numpy as np
 import torch
 from torch import nn
 
 from repro_torch.device import resolve
-from repro_torch.models import xlstm
+from repro_torch.models import layers, xlstm
 from repro_torch.models.config import DTYPES, ModelConfig
 from repro_torch.models.layers import PSpec, ein, rms_norm
 
 BLOCK_SCHEMAS = {
+    "attn": partial(layers.attn_schema, local=False),
     "mlstm": xlstm.mlstm_schema,
     "slstm": xlstm.slstm_schema,
 }
 
 BLOCK_APPLY = {
+    "attn": partial(layers.attn_block_apply, local=False),
     "mlstm": xlstm.mlstm_block_apply,
     "slstm": xlstm.slstm_block_apply,
 }
 
 BLOCK_PREFILL = {
+    "attn": partial(layers.attn_block_prefill, local=False),
     "mlstm": xlstm.mlstm_block_prefill,
     "slstm": xlstm.slstm_block_prefill,
 }
 
 BLOCK_DECODE = {
+    "attn": partial(layers.attn_block_decode, local=False),
     "mlstm": xlstm.mlstm_block_decode,
     "slstm": xlstm.slstm_block_decode,
 }
 
+# kind -> (cfg, batch, t_cache) -> the layer's cache schema.
 CACHE_SCHEMAS = {
-    "mlstm": xlstm.mlstm_cache_schema,
-    "slstm": xlstm.slstm_cache_schema,
+    "attn": lambda cfg, b, t: layers.attn_cache_schema(cfg, b, t, False),
+    "mlstm": lambda cfg, b, t: xlstm.mlstm_cache_schema(cfg, b),
+    "slstm": lambda cfg, b, t: xlstm.slstm_cache_schema(cfg, b),
 }
 
 # Block kinds of the JAX package that the port does not run yet.
-_LATER_BLOCKS = ("attn", "local_attn", "rglru")
+_LATER_BLOCKS = ("local_attn", "rglru")
+# The kernels a caller may replace by name (see the module docstring).
+KERNELS = ("mlstm_scan", "flash_attention", "decode_attention")
 
 
 def _check_config(cfg: ModelConfig) -> None:
@@ -64,19 +83,34 @@ def _check_config(cfg: ModelConfig) -> None:
                 f"repro_torch yet (ported: {sorted(BLOCK_SCHEMAS)})")
         if kind not in BLOCK_SCHEMAS:
             raise KeyError(kind)
-    if cfg.scan_layers and cfg.uniform_stack and cfg.n_layers > 1:
-        raise NotImplementedError(
-            f"scanned uniform stacks ({cfg.name}) are not ported to "
-            f"repro_torch yet")
     if cfg.frontend != "none":
         raise NotImplementedError(
             f"frontend {cfg.frontend!r} ({cfg.name}) is not ported to "
             f"repro_torch yet")
 
 
+def _check_kernels(kernels: dict) -> None:
+    bad = sorted(set(kernels) - set(KERNELS))
+    if bad:
+        raise TypeError(f"unknown kernel argument(s) {bad}; known: "
+                        f"{list(KERNELS)}")
+
+
 # ---------------------------------------------------------------------------
 # Schema / parameters
 # ---------------------------------------------------------------------------
+
+def _scanned(cfg: ModelConfig) -> bool:
+    """A uniform stack kept as stacked leaves (the reference's scan)."""
+    return cfg.scan_layers and cfg.uniform_stack and cfg.n_layers > 1
+
+
+def _stack(schema, n: int):
+    if isinstance(schema, PSpec):
+        return PSpec((n,) + tuple(schema.shape),
+                     ("layers",) + tuple(schema.axes), schema.init)
+    return {k: _stack(v, n) for k, v in schema.items()}
+
 
 def build_schema(cfg: ModelConfig) -> dict:
     _check_config(cfg)
@@ -86,16 +120,30 @@ def build_schema(cfg: ModelConfig) -> dict:
     if not cfg.tie_embeddings:
         sch["unembed"] = PSpec((d, v), ("embed", "vocab"),
                                ("normal", 1.0 / np.sqrt(d)))
-    sch["blocks"] = [BLOCK_SCHEMAS[k](cfg) for k in cfg.blocks()]
+    blocks = cfg.blocks()
+    if _scanned(cfg):
+        sch["layers"] = _stack(BLOCK_SCHEMAS[blocks[0]](cfg), cfg.n_layers)
+    else:
+        sch["blocks"] = [BLOCK_SCHEMAS[k](cfg) for k in blocks]
     return sch
+
+
+def n_params(cfg: ModelConfig) -> int:
+    """The number of parameters the schema holds."""
+    def count(node):
+        if isinstance(node, PSpec):
+            return int(np.prod(node.shape))
+        items = node.values() if isinstance(node, dict) else node
+        return sum(count(x) for x in items)
+    return count(build_schema(cfg))
 
 
 def _init_leaf(ps: PSpec, gen: torch.Generator, dtype, device):
     kind = ps.init[0]
     if kind == "normal":
         x = torch.randn(ps.shape, generator=gen, dtype=torch.float32,
-                        device=device) * ps.init[1]
-        return x.to(dtype)
+                        device=device)
+        return x.mul_(ps.init[1]).to(dtype)
     if kind == "zeros":
         return torch.zeros(ps.shape, dtype=dtype, device=device)
     if kind == "ones":
@@ -182,37 +230,72 @@ def _tree(params) -> dict:
 # Cache
 # ---------------------------------------------------------------------------
 
-def cache_schema(cfg: ModelConfig, batch: int, t_cache: int) -> list:
-    """One dict of :class:`PSpec` per layer (the recurrent blocks' states
-    do not grow with ``t_cache``)."""
+def cache_schema(cfg: ModelConfig, batch: int, t_cache: int):
+    """One dict of :class:`PSpec` per layer, or for a scanned stack one
+    dict of stacked leaves (the recurrent blocks' states do not grow with
+    ``t_cache``)."""
     _check_config(cfg)
-    return [CACHE_SCHEMAS[k](cfg, batch) for k in cfg.blocks()]
+    blocks = cfg.blocks()
+    if _scanned(cfg):
+        return _stack(CACHE_SCHEMAS[blocks[0]](cfg, batch, t_cache),
+                      cfg.n_layers)
+    return [CACHE_SCHEMAS[k](cfg, batch, t_cache) for k in blocks]
 
 
-def init_cache(cfg: ModelConfig, batch: int, t_cache: int,
-               device=None) -> list:
-    """Recurrent states in f32: zeros, and ``-1e30`` for the running max."""
+def _cache_leaf_dtype(cfg: ModelConfig, ps: PSpec) -> torch.dtype:
+    """KV entries in the compute dtype, recurrent states in f32."""
+    if ps.init[0] == "zeros" and len(ps.shape) >= 4 and \
+            ps.axes[-1] == "head_dim":
+        return cfg.compute_dtype()
+    return torch.float32
+
+
+def _map_cache(fn, cache):
+    if isinstance(cache, list):
+        return [{k: fn(v) for k, v in layer.items()} for layer in cache]
+    return {k: fn(v) for k, v in cache.items()}
+
+
+def init_cache(cfg: ModelConfig, batch: int, t_cache: int, device=None):
+    """KV entries zeros in the compute dtype; recurrent states in f32:
+    zeros, and ``-1e30`` for the running max."""
     dev = resolve(device)
 
     def leaf(ps: PSpec):
-        fill = ps.init[1] if ps.init[0] == "const" else 0.0
-        return torch.full(ps.shape, fill, dtype=torch.float32, device=dev)
+        if ps.init[0] == "const":
+            return torch.full(ps.shape, ps.init[1], dtype=torch.float32,
+                              device=dev)
+        return torch.zeros(ps.shape, dtype=_cache_leaf_dtype(cfg, ps),
+                           device=dev)
 
-    return [{k: leaf(ps) for k, ps in layer.items()}
-            for layer in cache_schema(cfg, batch, t_cache)]
+    return _map_cache(leaf, cache_schema(cfg, batch, t_cache))
 
 
-def cache_from_reference(np_cache, device=None) -> list:
-    """The JAX package's cache (a list of per-layer dicts) as tensors."""
+def _from_numpy(x) -> torch.Tensor:
+    x = np.array(x, copy=True)
+    if x.dtype.name == "bfloat16":          # ml_dtypes' bf16: same bits
+        return torch.from_numpy(x.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(x)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes                    # numpy has no bf16 of its own
+        return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def cache_from_reference(np_cache, device=None):
+    """The JAX package's cache (a list of per-layer dicts, or one dict of
+    stacked leaves for a scanned stack) as tensors of the same dtypes."""
     dev = resolve(device)
-    return [{k: torch.from_numpy(np.array(v, copy=True)).to(dev)
-             for k, v in layer.items()} for layer in np_cache]
+    return _map_cache(lambda v: _from_numpy(v).to(dev), np_cache)
 
 
-def cache_to_reference(cache) -> list:
+def cache_to_reference(cache):
     """The port's cache as the JAX package's tree of numpy arrays."""
-    return [{k: v.detach().cpu().numpy() for k, v in layer.items()}
-            for layer in cache]
+    return _map_cache(_to_numpy, cache)
 
 
 # ---------------------------------------------------------------------------
@@ -250,45 +333,75 @@ def _positions(b: int, s: int, device):
 # Forward / prefill / decode
 # ---------------------------------------------------------------------------
 
+def _layer(tree: dict, i: int) -> dict:
+    """Layer ``i`` of a stacked tree, as views."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+def _layers(p: dict, cfg: ModelConfig):
+    """(kind, parameters) of each layer in order."""
+    if _scanned(cfg):
+        kind = cfg.blocks()[0]
+        return [(kind, _layer(p["layers"], i)) for i in range(cfg.n_layers)]
+    return list(zip(cfg.blocks(), p["blocks"]))
+
+
+def _layer_caches(cache, cfg: ModelConfig) -> list:
+    if _scanned(cfg):
+        return [_layer(cache, i) for i in range(cfg.n_layers)]
+    return cache
+
+
+def _join_caches(caches: list, cfg: ModelConfig):
+    """Per-layer caches back into the config's cache tree."""
+    if _scanned(cfg):
+        return {k: torch.stack([c[k] for c in caches])
+                for k in caches[0]}
+    return caches
+
+
 @torch.no_grad()
-def forward(params, cfg: ModelConfig, batch, *, mlstm_scan=None):
-    """-> f32 logits [B, S, V].  ``mlstm_scan`` replaces the mLSTM
-    blocks' scan (default: the kernel's dispatch)."""
+def forward(params, cfg: ModelConfig, batch, **kernels):
+    """-> f32 logits [B, S, V]."""
+    _check_kernels(kernels)
     p = _tree(params)
     x = _embed_tokens(p, cfg, batch["tokens"])
     positions = _positions(*x.shape[:2], x.device)
-    for lp, kind in zip(p["blocks"], cfg.blocks()):
-        x = BLOCK_APPLY[kind](lp, x, cfg, positions=positions,
-                              mlstm_scan=mlstm_scan)
+    for kind, lp in _layers(p, cfg):
+        x = BLOCK_APPLY[kind](lp, x, cfg, positions=positions, **kernels)
     return _unembed(p, cfg, x)
 
 
 @torch.no_grad()
-def prefill(params, cfg: ModelConfig, batch, cache, *, mlstm_scan=None):
-    """Fill the cache from a prompt; -> (last-token logits [B,1,V], cache)."""
+def prefill(params, cfg: ModelConfig, batch, cache, **kernels):
+    """Fill the cache from a prompt; -> (last-token logits [B,1,V], cache).
+    The input cache is not modified."""
+    _check_kernels(kernels)
     p = _tree(params)
     x = _embed_tokens(p, cfg, batch["tokens"])
     positions = _positions(*x.shape[:2], x.device)
     new_cache = []
-    for lp, lc, kind in zip(p["blocks"], cache, cfg.blocks()):
+    for (kind, lp), lc in zip(_layers(p, cfg), _layer_caches(cache, cfg)):
         x, nc = BLOCK_PREFILL[kind](lp, x, cfg, positions=positions,
-                                    cache=lc, mlstm_scan=mlstm_scan)
+                                    cache=lc, **kernels)
         new_cache.append(nc)
-    return _unembed(p, cfg, x[:, -1:]), new_cache
+    return _unembed(p, cfg, x[:, -1:]), _join_caches(new_cache, cfg)
 
 
 @torch.no_grad()
-def decode_step(params, cfg: ModelConfig, tokens, lengths, cache, *,
-                mlstm_scan=None):
+def decode_step(params, cfg: ModelConfig, tokens, lengths, cache,
+                **kernels):
     """One token for every sequence. tokens [B,1]; lengths [B] (positions).
-    -> (logits [B,1,V], cache, lengths + 1)."""
+    -> (logits [B,1,V], cache, lengths + 1).  The input cache is not
+    modified."""
+    _check_kernels(kernels)
     p = _tree(params)
     x = _embed_tokens(p, cfg, tokens)
     positions = lengths[:, None].to(torch.int32)
     new_cache = []
-    for lp, lc, kind in zip(p["blocks"], cache, cfg.blocks()):
+    for (kind, lp), lc in zip(_layers(p, cfg), _layer_caches(cache, cfg)):
         x, nc = BLOCK_DECODE[kind](lp, x, cfg, positions=positions,
-                                   cache=lc, lengths=lengths,
-                                   mlstm_scan=mlstm_scan)
+                                   cache=lc, lengths=lengths, **kernels)
         new_cache.append(nc)
-    return _unembed(p, cfg, x), new_cache, lengths + 1
+    return _unembed(p, cfg, x), _join_caches(new_cache, cfg), lengths + 1

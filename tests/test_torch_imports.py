@@ -29,7 +29,8 @@ def _forbidden(mod: str) -> bool:
 
 
 def test_port_files_exist():
-    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES
+             + sorted((ROOT / "src" / "repro_torch").rglob("*.cu"))}
     for want in ("src/repro_torch/core/simlock.py",
                  "src/repro_torch/kernels/simstep.py",
                  "src/repro_torch/workloads/generators.py",
@@ -38,6 +39,11 @@ def test_port_files_exist():
                  "src/repro_torch/models/lm.py",
                  "src/repro_torch/serving/engine.py",
                  "src/repro_torch/launch/serve.py",
+                 "src/repro_torch/configs/yi_6b.py",
+                 "src/repro_torch/kernels/flash_attention.py",
+                 "src/repro_torch/kernels/decode_attention.py",
+                 "src/repro_torch/kernels/csrc/flash_attention.cu",
+                 "src/repro_torch/kernels/csrc/decode_attention.cu",
                  "chip_smoke.py"):
         assert want in names
 
@@ -70,9 +76,31 @@ def test_port_imports_with_jax_and_repro_blocked():
             "(2, 5), dtype=torch.long)}, lm.init_cache(cfg, 2, 8, 'cpu'))\n"
             "assert logits.shape == (2, 1, cfg.vocab)\n"
             "assert bool(torch.isfinite(logits).all())\n"
+            "import repro_torch.kernels.flash_attention\n"
+            "import repro_torch.kernels.decode_attention\n"
+            "import repro_torch.configs.yi_6b\n"
+            "cfg = registry.get_tiny('yi-6b')\n"
+            "p = lm.init_params(cfg, 0, device='cpu')\n"
+            "logits, cache = lm.prefill(p, cfg, {'tokens': torch.ones("
+            "(2, 5), dtype=torch.long)}, lm.init_cache(cfg, 2, 8, 'cpu'))\n"
+            "assert logits.shape == (2, 1, cfg.vocab)\n"
+            "assert bool(torch.isfinite(logits).all())\n"
             "assert not any(m.split('.')[0] in ('jax', 'repro') "
             "for m, v in sys.modules.items() if v is not None)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
+
+
+def test_no_library_attention_or_compiler_in_the_port():
+    """The port's attention is its own kernels: no file under
+    ``src/repro_torch/`` names PyTorch's fused attention or its
+    compiler."""
+    words = ("scaled_dot_product_attention", "torch.compile")
+    files = sorted(p for p in (ROOT / "src" / "repro_torch").rglob("*")
+                   if p.suffix in (".py", ".cu", ".cuh"))
+    assert len(files) > 30
+    bad = {p.relative_to(ROOT).as_posix(): w for p in files
+           for w in words if w in p.read_text()}
+    assert bad == {}

@@ -139,6 +139,23 @@ def test_serve_main_on_the_cpu():
         assert np.isfinite(m["ttft_p99"]) and m["throughput_tok_s"] > 0
 
 
+def test_serve_main_yi_on_the_cpu():
+    """yi-6b-tiny served on the CPU: the plain attention versions run (no
+    launch of either kernel) and the engine answers requests (a slow
+    rate over a long virtual span, so that requests finish however long
+    the calibrated steps take on a loaded host)."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    n0 = (fa.flash_attention.launches, da.decode_attention.launches)
+    m = serve.main(["--arch", "yi-6b", "--tiny", "--rate", "0.1",
+                    "--duration", "600"], device="cpu")
+    assert (fa.flash_attention.launches,
+            da.decode_attention.launches) == n0
+    assert m["decode_step_s"] > 0 and m["prefill_chunk_s"] > 0
+    assert m["n"] > 0 and np.isfinite(m["ttft_p99"])
+    assert m["throughput_tok_s"] > 0
+
+
 def test_calibrated_cost_on_the_cpu_is_a_cost_model():
     from repro_torch.configs import registry
     cfg = dataclasses.replace(registry.get_tiny("xlstm-125m"), n_layers=2)

@@ -188,12 +188,12 @@ def test_entry_points_need_a_card_unless_told_the_cpu(monkeypatch):
 
 
 def test_registry_raises_for_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="yi_6b"):
-        treg.get("yi-6b")
+    with pytest.raises(NotImplementedError, match="recurrentgemma_2b"):
+        treg.get("recurrentgemma-2b")
     with pytest.raises(KeyError):
         treg.get("no-such-arch")
     assert treg.ALIASES == jreg.ALIASES
-    attn = dataclasses.replace(treg.get_tiny("xlstm-125m"),
-                               block_pattern=("mlstm", "attn"))
-    with pytest.raises(NotImplementedError, match="attn"):
-        tlm.build_schema(attn)
+    rglru = dataclasses.replace(treg.get_tiny("xlstm-125m"),
+                                block_pattern=("mlstm", "rglru"))
+    with pytest.raises(NotImplementedError, match="rglru"):
+        tlm.build_schema(rglru)
