@@ -35,12 +35,15 @@ Phases, each of which fails the script (non-zero exit, no result line):
    the plain version; logits within 10 x TOL[bf16] = 0.2.  Then where a
    prefill's and a decode step's time goes, block by block.
 7. Hold ``flash_attention`` against its plain version on the card (f32
-   and bf16, head dims 64 and 128, GQA groups 1 and 8, ragged S and T,
-   causal or not, window 0 or 64) within the JAX package's kernel bar
-   (TOL), then time it at the yi-6b prefill shape beside its bound, the
+   and bf16, head dims 64, 128 and 256, GQA groups 1 and 8 and recurrentgemma's
+   10 q heads on 1 kv head, ragged S and T, causal or not, window 0 or
+   64) within the JAX package's kernel bar (TOL), then time it at the
+   yi-6b and recurrentgemma-2b prefill shapes beside its bound, the
    plain version and PyTorch's fused attention.
 8. The same for ``decode_attention`` (per-row lengths 1, 257, 511, T and
-   a mix, T of 512 and 300), timed at the yi-6b decode shape.
+   a mix, T of 512 and 300; and ring starts: a local block's ring of 17
+   slots with window 16 at positions 16, 17, 40 and a mix), timed at the
+   yi-6b and recurrentgemma-2b decode shapes.
 9. yi-6b at its full config (6,061,035,520 parameters, f32 at rest, bf16
    compute): a prefill of 8 x 256 tokens and 8 decode steps through the
    kernels and through the plain versions, logits within 3 % of the
@@ -52,8 +55,25 @@ Phases, each of which fails the script (non-zero exit, no result line):
     the mean prompt's prefill, with both attention counters set to 0
     just before and read just after; then the
     ``python -m repro_torch.launch.serve --arch yi-6b`` CLI once at that
-    rate, in its own process.
-11. Print the kernel table (JSON), the card and, last, the device line.
+    rate, in its own process.  The yi-6b weights are freed.
+11. Hold ``rglru_scan`` against its plain version on the card, bit for
+    bit in f32 and within 5 x TOL in bf16: with and without h0, S in {1,
+    7, 256}, R in {2560, 100}, a in (0, 1); time one launch at the
+    serving shape beside its bound and the plain version.
+12. recurrentgemma-2b at its full config (2,658,736,640 parameters, f32
+    at rest, bf16 compute): a prefill of 8 x 256 tokens and 8 decode
+    steps through the kernels and through the plain versions, logits
+    within 3 % of the largest; a prefill's and a decode step's time
+    split into the weight casts, RG-LRU projections, conv and gates,
+    ``rglru_scan``, attention projections, attention, FFN and
+    unembedding; the device idle share from ``torch.profiler``.
+13. Serve recurrentgemma-2b: one calibration, then asl, fifo and greedy
+    on that cost model at a rate set from both calibrated costs
+    (0.5 / (4.667 prefill chunks + 80 decode steps)), TTFT SLO 4 x the
+    mean prompt's prefill, with the ``rglru_scan``, ``flash_attention``
+    and ``decode_attention`` counters set to 0 just before and read just
+    after.
+14. Print the kernel table (JSON), the card and, last, the device line.
 
 It exits non-zero when no CUDA device is present, and when the port's
 package is not next to it.
@@ -92,19 +112,27 @@ SCHEDULERS = ("asl", "fifo", "greedy")
 MLSTM_TOL = {"float32": 3e-4, "bfloat16": 0.2}
 LOGITS_TOL = 0.2
 
-# The yi-6b serving path: its full config, the same calibration shapes,
-# and a stream whose rate the calibration sets (half of the engine's slot
-# on prefill) with a TTFT SLO of 4 x the mean prompt's prefill.  The
-# attention kernels are held to the JAX package's kernel bar
-# (tests/test_kernels.py: TOL, absolute and relative); the model's
-# logits, kernel path against plain path, to 3 % of the largest logit
-# (the bar tests/test_torch_yi.py holds the model to against JAX in
+# The yi-6b and recurrentgemma-2b serving paths: each at its full
+# config, the same calibration shapes, and a 600 s stream whose rate the
+# calibration sets, with a TTFT SLO of 4 x the mean prompt's prefill.
+# yi-6b puts half of the engine's slot on prefill; recurrentgemma-2b
+# half on the mean request, its prompt's 4.667 prefill chunks and 80
+# decode steps at batch 1 (t_cache 512, inside its 2048-token window).
+# The attention kernels are held to the JAX package's kernel bar
+# (tests/test_kernels.py: TOL, absolute and relative), rglru_scan to its
+# plain version bit for bit in f32 and to that file's bar for it in bf16
+# (5 x TOL); the models' logits, kernel path against plain path, to 3 %
+# of the largest logit (the bar tests/test_torch_yi.py and
+# tests/test_torch_recurrentgemma.py hold the models to against JAX in
 # bf16).
 YI = "yi-6b"
 YI_PARAMS = 6_061_035_520
-YI_DURATION_S = 600.0
-YI_LOGITS_TOL = 0.03
+RG = "recurrentgemma-2b"
+RG_PARAMS = 2_658_736_640
+SERVE_DURATION_S = 600.0
+MODEL_LOGITS_TOL = 0.03
 ATTN_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
+RGLRU_TOL = {"float32": 0.0, "bfloat16": 5 * ATTN_TOL["bfloat16"]}
 
 # Fig1 calibration (benchmarks/paper_figs.py): 4 big + 4 little cores, CS
 # 3 us, non-CS 1 us, inter-epoch 5 us, CS ratio 3.75, non-CS ratio 1.8.
@@ -169,6 +197,19 @@ def state_digest(st) -> str:
             h.update(np.ascontiguousarray(np.asarray(getattr(st, k)))
                      .tobytes())
     return h.hexdigest()
+
+
+def instantiation(line: str) -> str:
+    """The template arguments of the kernel that ptxas's "Compiling entry
+    function" line names, readable: (f32, 256) for ``...IfLi256EE...``."""
+    import re
+    m = re.search(r"_kernelI(.*?)EEv", line)
+    if not m:
+        return ""
+    args = m.group(1).replace("13__nv_bfloat16", "bf16,").replace(
+        "Li", "").replace("E", ",")
+    args = re.sub(r"^f", "f32,", args)
+    return "(" + ", ".join(a for a in args.split(",") if a) + ")"
 
 
 def card_line() -> str:
@@ -660,69 +701,89 @@ def flash_case(fa, gen, b, h, kh, s, t, dh, dtype, causal, window) -> tuple:
     return err, ok
 
 
-def phase_flash(fa) -> dict:
-    """flash_attention == its plain version on the card over the sweep,
-    then the serving shape timed against its bound, the plain version and
-    PyTorch's fused attention."""
+# (H, K, dh) of the sweeps: GQA groups 1 and 8 at head dims 64, 128 and
+# 256, and recurrentgemma-2b's 10 q heads on one kv head of 256.
+FLASH_HEADS = [(8, 8 // g, dh) for dh in (64, 128, 256) for g in (1, 8)] \
+    + [(10, 1, 256)]
+DECODE_HEADS = [(32, 32 // g, dh) for dh in (64, 128, 256) for g in (1, 8)] \
+    + [(10, 1, 256)]
+
+
+def flash_timing(fa, gen, b, h, kh, s, dh, window) -> dict:
+    """One causal prefill shape in bf16, in the model's layout
+    (transposed views): the kernel timed against its bound, the plain
+    version and PyTorch's fused attention."""
     import torch
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(2)
-    n_bad = n_cases = 0
-    for dtype in (torch.float32, torch.bfloat16):
-        for dh in (64, 128):
-            for g in (1, 8):
-                for s, t in ((128, 128), (200, 200), (1, 200), (200, 1),
-                             (77, 300)):
-                    for causal in (True, False):
-                        for window in (0, 64):
-                            err, ok = flash_case(fa, gen, 2, 8, 8 // g, s,
-                                                 t, dh, dtype, causal,
-                                                 window)
-                            n_cases += 1
-                            n_bad += not ok
-                            if not ok:
-                                print(f"flash_attention {dtype} dh={dh} "
-                                      f"g={g} S={s} T={t} causal={causal} "
-                                      f"window={window}: max abs err "
-                                      f"{err:.3g} OVER TOLERANCE",
-                                      flush=True)
-    print(f"flash_attention sweep: {n_cases - n_bad}/{n_cases} cases "
-          f"within tolerance (f32/bf16 x dh 64/128 x g 1/8 x S,T in "
-          f"128/128 200/200 1/200 200/1 77/300 x causal x window 0/64)",
-          flush=True)
-    if n_bad:
-        raise AssertionError(f"flash_attention != plain in {n_bad} cases")
-    # The serving shape, in the model's layout (transposed views).
-    b, h, kh, s, dh = SERVE_BATCH, 32, 4, SERVE_CHUNK, 128
     f = lambda *shape: torch.randn(*shape, generator=gen, device="cuda") \
         .to(torch.bfloat16)
     q, k, v = (x.transpose(1, 2) for x in (f(b, s, h, dh), f(b, s, kh, dh),
                                             f(b, s, kh, dh)))
     kernel_ms, times = median_ms(
-        lambda: fa.flash_attention(q, k, v, causal=True))
-    got = fa.flash_attention(q, k, v, causal=True)
+        lambda: fa.flash_attention(q, k, v, causal=True, window=window))
+    got = fa.flash_attention(q, k, v, causal=True, window=window)
     out = {}
-    plain_ms = cuda_ms(lambda: out.update(
-        want=fa.flash_attention_ref(q, k, v, causal=True)))
+    plain_ms = cuda_ms(lambda: out.update(want=fa.flash_attention_ref(
+        q, k, v, causal=True, window=window)))
     err = float((got.float() - out["want"].float()).abs().max())
     qc, kc, vc = (x.contiguous() for x in (q, k, v))
     lib_ms, _ = median_ms(lambda: library_attention(qc, kc, vc, True))
+    _, dev_ms, _ = device_busy(
+        lambda: fa.flash_attention(q, k, v, causal=True, window=window), 10)
     n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    # The causal products; a window of 0 or >= S masks nothing more.
     flops = 2 * 2 * b * h * s * (s + 1) // 2 * dh
     bnd, by = bound(n_bytes, flops)
-    print(f"flash_attention serving shape B={b} H={h} K={kh} S=T={s} "
-          f"dh={dh} bf16 causal: kernel {kernel_ms:.4f} ms/launch (of "
-          f"{[round(x, 4) for x in times]}), plain {plain_ms:.3f} ms, "
+    print(f"flash_attention B={b} H={h} K={kh} S=T={s} dh={dh} window="
+          f"{window} bf16 causal: kernel {kernel_ms:.4f} ms/launch (of "
+          f"{[round(x, 4) for x in times]}; on the card {dev_ms:.4f}), "
+          f"plain {plain_ms:.3f} ms, "
           f"library {lib_ms:.4f} ms, bound {bnd:.5f} ms ({by}; "
           f"{n_bytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), max abs err "
           f"{err:.3g}", flush=True)
     if err > attn_tol(torch.bfloat16):
-        raise AssertionError("flash_attention != plain at the serving shape")
+        raise AssertionError(f"flash_attention != plain at B={b} H={h} "
+                             f"K={kh} S={s} dh={dh}")
     return {"ms": kernel_ms, "plain_ms": plain_ms, "max_abs_err": err,
             "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms}
 
 
-def decode_case(da, gen, b, h, kh, t, dh, dtype, lengths) -> tuple:
+def phase_flash(fa) -> dict:
+    """flash_attention == its plain version on the card over the sweep,
+    then the yi-6b and recurrentgemma-2b prefill shapes timed against
+    their bounds, the plain version and PyTorch's fused attention.
+    -> the yi-6b shape's numbers (the kernel table's)."""
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    n_bad = n_cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for h, kh, dh in FLASH_HEADS:
+            for s, t in ((128, 128), (200, 200), (1, 200), (200, 1),
+                         (77, 300)):
+                for causal in (True, False):
+                    for window in (0, 64):
+                        err, ok = flash_case(fa, gen, 2, h, kh, s, t, dh,
+                                             dtype, causal, window)
+                        n_cases += 1
+                        n_bad += not ok
+                        if not ok:
+                            print(f"flash_attention {dtype} H={h} K={kh} "
+                                  f"dh={dh} S={s} T={t} causal={causal} "
+                                  f"window={window}: max abs err {err:.3g} "
+                                  f"OVER TOLERANCE", flush=True)
+    print(f"flash_attention sweep: {n_cases - n_bad}/{n_cases} cases "
+          f"within tolerance (f32/bf16 x (H, K, dh) in {FLASH_HEADS} x "
+          f"S,T in 128/128 200/200 1/200 200/1 77/300 x causal x window "
+          f"0/64)", flush=True)
+    if n_bad:
+        raise AssertionError(f"flash_attention != plain in {n_bad} cases")
+    yi = flash_timing(fa, gen, SERVE_BATCH, 32, 4, SERVE_CHUNK, 128, 0)
+    flash_timing(fa, gen, SERVE_BATCH, 10, 1, SERVE_CHUNK, 256, 2048)
+    return yi
+
+
+def decode_case(da, gen, b, h, kh, t, dh, dtype, lengths,
+                starts=None) -> tuple:
     """One launch against the plain version, the caches as transposed
     views of [B,T,K,dh] (the model's layout); -> (max abs err, ok)."""
     import torch
@@ -731,10 +792,12 @@ def decode_case(da, gen, b, h, kh, t, dh, dtype, lengths) -> tuple:
     q = f(b, h, dh)
     kc, vc = (f(b, t, kh, dh).transpose(1, 2) for _ in range(2))
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    if starts is not None:
+        starts = torch.tensor(starts, dtype=torch.int32, device="cuda")
     n0 = da.decode_attention.launches
-    got = da.decode_attention(q, kc, vc, lens)
+    got = da.decode_attention(q, kc, vc, lens, starts)
     torch.cuda.synchronize()
-    want = da.decode_attention_ref(q, kc, vc, lens)
+    want = da.decode_attention_ref(q, kc, vc, lens, starts)
     err = float((got.float() - want.float()).abs().max())
     tol = attn_tol(dtype)
     ok = (torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
@@ -743,67 +806,111 @@ def decode_case(da, gen, b, h, kh, t, dh, dtype, lengths) -> tuple:
     return err, ok
 
 
-def phase_decode(da) -> dict:
-    """decode_attention == its plain version on the card over the sweep,
-    then the serving shape timed against its bound, the plain version and
-    PyTorch's fused attention."""
+def decode_timing(da, gen, b, h, kh, t, dh, n, starts) -> dict:
+    """One decode shape in bf16 with ``n`` valid slots of every row (ring
+    starts: None or zeros), the caches as the model's views: the kernel
+    timed against its bound, the plain version and PyTorch's fused
+    attention on the valid prefix."""
     import torch
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(3)
-    n_bad = n_cases = 0
-    for dtype in (torch.float32, torch.bfloat16):
-        for dh in (64, 128):
-            for g in (1, 8):
-                for t in (512, 300):
-                    mix = [1, 257, 511, t, 64, 65, 2, t - 1]
-                    for lengths in ([1] * 8, [257] * 8, [min(511, t)] * 8,
-                                    [t] * 8, [min(x, t) for x in mix]):
-                        err, ok = decode_case(da, gen, 8, 32, 32 // g, t,
-                                              dh, dtype, lengths)
-                        n_cases += 1
-                        n_bad += not ok
-                        if not ok:
-                            print(f"decode_attention {dtype} dh={dh} g={g} "
-                                  f"T={t} lengths={lengths}: max abs err "
-                                  f"{err:.3g} OVER TOLERANCE", flush=True)
-    print(f"decode_attention sweep: {n_cases - n_bad}/{n_cases} cases "
-          f"within tolerance (f32/bf16 x dh 64/128 x g 1/8 x T 512/300 x "
-          f"lengths 1, 257, 511, T and a mix per row)", flush=True)
-    if n_bad:
-        raise AssertionError(f"decode_attention != plain in {n_bad} cases")
-    b, h, kh, t, dh, n = SERVE_BATCH, 32, 4, 2 * SERVE_CHUNK, 128, 257
     f = lambda *shape: torch.randn(*shape, generator=gen, device="cuda") \
         .to(torch.bfloat16)
     q = f(b, h, dh)
     kc, vc = (f(b, t, kh, dh).transpose(1, 2) for _ in range(2))
     lens = torch.full((b,), n, dtype=torch.int32, device="cuda")
+    st = None if starts is None else \
+        torch.full((b,), starts, dtype=torch.int32, device="cuda")
     kernel_ms, times = median_ms(
-        lambda: da.decode_attention(q, kc, vc, lens), reps=100)
-    got = da.decode_attention(q, kc, vc, lens)
+        lambda: da.decode_attention(q, kc, vc, lens, st), reps=100)
+    got = da.decode_attention(q, kc, vc, lens, st)
     out = {}
     plain_ms = cuda_ms(lambda: out.update(
-        want=da.decode_attention_ref(q, kc, vc, lens)))
+        want=da.decode_attention_ref(q, kc, vc, lens, st)))
     err = float((got.float() - out["want"].float()).abs().max())
     q4 = q[:, :, None]
     kv, vv = (x[:, :, :n].contiguous() for x in (kc, vc))
     lib_ms, _ = median_ms(lambda: library_attention(q4, kv, vv, False),
                           reps=100)
+    _, dev_ms, _ = device_busy(
+        lambda: da.decode_attention(q, kc, vc, lens, st), 100)
     n_bytes = 2 * (2 * q.numel() + 2 * b * kh * n * dh)
     flops = 2 * 2 * b * h * n * dh
     bnd, by = bound(n_bytes, flops)
-    print(f"decode_attention serving shape B={b} H={h} K={kh} T={t} "
-          f"length {n} dh={dh} bf16: kernel {kernel_ms:.4f} ms/launch (of "
-          f"{[round(x, 4) for x in times]}), plain {plain_ms:.3f} ms, "
+    print(f"decode_attention B={b} H={h} K={kh} T={t} length {n} starts "
+          f"{starts} dh={dh} bf16: kernel {kernel_ms:.4f} ms/launch (of "
+          f"{[round(x, 4) for x in times]}; on the card {dev_ms:.4f}), "
+          f"plain {plain_ms:.3f} ms, "
           f"library {lib_ms:.4f} ms, bound {bnd:.6f} ms ({by}; "
-          f"{n_bytes / 1e6:.2f} MB), max abs err {err:.3g}", flush=True)
+          f"{n_bytes / 1e6:.2f} MB), {kh * b} blocks, max abs err "
+          f"{err:.3g}", flush=True)
     if err > attn_tol(torch.bfloat16):
-        raise AssertionError("decode_attention != plain at the serving "
-                             "shape")
+        raise AssertionError(f"decode_attention != plain at B={b} H={h} "
+                             f"K={kh} T={t} dh={dh}")
     return {"ms": kernel_ms, "plain_ms": plain_ms, "max_abs_err": err,
             "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms}
 
 
-def yi_steps(lm, params, cfg, toks, n_decode, **kernels) -> tuple:
+def phase_decode(da) -> dict:
+    """decode_attention == its plain version on the card over the sweep
+    (prefix lengths, and ring starts where a local block's window drops
+    slots of a wrapped ring), then the yi-6b and recurrentgemma-2b decode
+    shapes timed against their bounds, the plain version and PyTorch's
+    fused attention.  -> the yi-6b shape's numbers (the kernel
+    table's)."""
+    import torch
+    from repro_torch.models import layers
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    n_bad = n_cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for h, kh, dh in DECODE_HEADS:
+            for t in (512, 300):
+                mix = [1, 257, 511, t, 64, 65, 2, t - 1]
+                for lengths in ([1] * 8, [257] * 8, [min(511, t)] * 8,
+                                [t] * 8, [min(x, t) for x in mix]):
+                    err, ok = decode_case(da, gen, 8, h, kh, t, dh, dtype,
+                                          lengths)
+                    n_cases += 1
+                    n_bad += not ok
+                    if not ok:
+                        print(f"decode_attention {dtype} H={h} K={kh} "
+                              f"dh={dh} T={t} lengths={lengths}: max abs "
+                              f"err {err:.3g} OVER TOLERANCE", flush=True)
+    # A local block's ring: window 16 on 17 slots, every row at one
+    # position (16: the first slot leaves the window; 17: the ring wraps;
+    # 40) and a batch of rows at mixed positions (mixed starts).
+    t, window = 17, 16
+    for dtype in (torch.float32, torch.bfloat16):
+        for h, kh, dh in ((10, 1, 256), (32, 4, 128), (8, 1, 64)):
+            for last in ([16] * 8, [17] * 8, [40] * 8,
+                         [0, 5, 16, 17, 18, 33, 40, 100]):
+                runs = [layers.decode_run(torch.tensor(x), t, window)
+                        for x in last]
+                lengths = [int(n) for n, _ in runs]
+                starts = [int(st) for _, st in runs]
+                err, ok = decode_case(da, gen, 8, h, kh, t, dh, dtype,
+                                      lengths, starts)
+                n_cases += 1
+                n_bad += not ok
+                if not ok or dtype == torch.float32 and h == 10:
+                    print(f"decode_attention ring T={t} window={window} "
+                          f"{dtype} H={h} K={kh} dh={dh} positions {last} "
+                          f"-> lengths {lengths} starts {starts}: max abs "
+                          f"err {err:.3g} {'ok' if ok else 'OVER TOLERANCE'}",
+                          flush=True)
+    print(f"decode_attention sweep: {n_cases - n_bad}/{n_cases} cases "
+          f"within tolerance (f32/bf16 x (H, K, dh) in {DECODE_HEADS} x T "
+          f"512/300 x lengths 1, 257, 511, T and a mix per row; ring of 17 "
+          f"slots, window 16, at positions 16, 17, 40 and a mix)",
+          flush=True)
+    if n_bad:
+        raise AssertionError(f"decode_attention != plain in {n_bad} cases")
+    b, t, n = SERVE_BATCH, 2 * SERVE_CHUNK, SERVE_CHUNK + 1
+    yi = decode_timing(da, gen, b, 32, 4, t, 128, n, None)
+    decode_timing(da, gen, b, 10, 1, t, 256, n, 0)
+    return yi
+
+
+def model_steps(lm, params, cfg, toks, n_decode, **kernels) -> tuple:
     """A prefill of SERVE_CHUNK tokens of every sequence, then
     ``n_decode`` decode steps; -> (logits [B, 1 + n_decode, V], the
     prefill's seconds, the mean decode step's seconds)."""
@@ -827,15 +934,10 @@ def yi_steps(lm, params, cfg, toks, n_decode, **kernels) -> tuple:
         (time.perf_counter() - t0) / n_decode
 
 
-def timed_attn_layer(layers, lp, x, cfg, cache, spent, *, lengths=None):
-    """One attention block, as ``layers.attn_block_prefill`` /
-    ``attn_block_decode`` run it, cut into segments bracketed by
-    synchronisations: the f32 -> bf16 weight casts, the projections (q,
-    k, v with RoPE, and the output), attention (the cache write and the
-    kernel), and the FFN (norm, gated FFN, residual).  Seconds add to
-    ``spent``; -> (x, cache)."""
+def segment_timer(spent):
+    """-> seg(name, fn): run ``fn`` between synchronisations and add its
+    seconds to ``spent[name]``."""
     import torch
-    dtype = cfg.compute_dtype()
 
     def seg(name, fn):
         torch.cuda.synchronize()
@@ -844,35 +946,81 @@ def timed_attn_layer(layers, lp, x, cfg, cache, spent, *, lengths=None):
         torch.cuda.synchronize()
         spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
         return r
+    return seg
 
-    cast = lambda t: {k: cast(v) if isinstance(v, dict) else v.to(dtype)
-                      for k, v in t.items()}
-    pc = seg("casts", lambda: cast(lp))
+
+def cast_tree(tree, dtype):
+    return {k: cast_tree(v, dtype) if isinstance(v, dict) else v.to(dtype)
+            for k, v in tree.items()}
+
+
+def timed_attn_layer(layers, lp, x, cfg, cache, spent, *, lengths=None,
+                     local=False):
+    """One attention block, as ``layers.attn_block_prefill`` /
+    ``attn_block_decode`` run it, cut into segments bracketed by
+    synchronisations: the f32 -> bf16 weight casts, the attention
+    projections (q, k, v with RoPE, and the output), attention (the cache
+    write, the decode mask's run and the kernel), and the FFN (norm,
+    gated FFN, residual).  Seconds add to ``spent``; -> (x, cache)."""
+    import torch
+    dtype = cfg.compute_dtype()
+    seg = segment_timer(spent)
+    pc = seg("casts", lambda: cast_tree(lp, dtype))
     b, s = x.shape[:2]
+    window = cfg.local_window if local else 0
     positions = (lengths[:, None].to(torch.int32) if lengths is not None
                  else torch.arange(s, dtype=torch.int32,
                                    device=x.device)[None].expand(b, s))
-    q, k, v = seg("projections", lambda: layers._qkv(
+    q, k, v = seg("attention projections", lambda: layers._qkv(
         pc, layers.rms_norm(x, lp["ln1"], cfg.norm_eps), cfg, positions,
         dtype))
     if lengths is None:
         new = seg("attention", lambda: {n: torch.cat(
             [t, cache[n][:, s:]], dim=1) for n, t in (("k", k), ("v", v))})
         out = seg("attention", lambda: layers.attention(
-            q, k, v, causal=True, dtype=dtype))
+            q, k, v, causal=True, window=window, dtype=dtype))
     else:
-        slot = torch.remainder(lengths[0].long(), cache["k"].shape[1])
+        t_cache = cache["k"].shape[1]
+        slot = torch.remainder(lengths[0].long(), t_cache)
         new = seg("attention", lambda: {n: cache[n].index_copy(
             1, slot.reshape(1), t) for n, t in (("k", k), ("v", v))})
-        n = torch.clamp(lengths[0] + 1, max=cache["k"].shape[1])
+        n, start = seg("attention", lambda: layers.decode_run(
+            lengths[0].long(), t_cache, window))
         out = seg("attention", lambda: layers.decode_attention(
-            q, new["k"], new["v"], n.expand(b), dtype=dtype))
-    x = seg("projections", lambda: x + layers.ein(
+            q, new["k"], new["v"], n.expand(b),
+            start.expand(b) if local else None, dtype=dtype))
+    x = seg("attention projections", lambda: x + layers.ein(
         "bshk,hkd->bsd", out, pc["wo"], dtype=dtype))
     x = seg("ffn", lambda: x + layers.mlp_apply(
         pc["mlp"], layers.rms_norm(x, lp["ln2"], cfg.norm_eps),
         cfg.activation, dtype))
     return x, new
+
+
+def timed_rglru_layer(rglru, layers, ops, lp, x, cfg, cache, spent, *,
+                      decode):
+    """One RG-LRU block, as ``rglru.rglru_block_prefill`` /
+    ``rglru_block_decode`` run it, cut into segments bracketed by
+    synchronisations: the f32 -> bf16 weight casts, the RG-LRU projections
+    (norm, gate with GELU, input, output), the conv and gates, the
+    ``rglru_scan`` kernel, and the FFN.  Seconds add to ``spent``; -> x."""
+    dtype = cfg.compute_dtype()
+    seg = segment_timer(spent)
+    pc = seg("casts", lambda: cast_tree(
+        {k: lp[k] for k in ("w_gate", "w_x", "w_out", "mlp")}, dtype))
+    h = seg("rglru projections", lambda: layers.rms_norm(
+        x, lp["ln1"], cfg.norm_eps))
+    gate, u = seg("rglru projections", lambda: rglru._gate_and_input(
+        pc, h, cfg))
+    uc = seg("conv and gates", lambda: rglru._causal_conv(
+        u, lp["conv_w"], lp["conv_b"], cache["conv"] if decode else None))
+    a, bterm = seg("conv and gates", lambda: rglru._gates(lp, uc))
+    hs = seg("rglru_scan", lambda: ops.rglru_scan(
+        a, bterm, cache["h"] if decode else None))
+    y = seg("rglru projections", lambda: layers.ein(
+        "bsr,rd->bsd", hs.to(dtype) * gate, pc["w_out"], dtype=dtype))
+    return seg("ffn", lambda: rglru._ffn(
+        {"ln2": lp["ln2"], "mlp": pc["mlp"]}, x + y, cfg))
 
 
 def device_busy(fn, n) -> tuple:
@@ -900,23 +1048,26 @@ def device_busy(fn, n) -> tuple:
     return wall, busy, 1 - busy / wall
 
 
-def phase_yi_model(fa, da) -> dict:
-    """yi-6b at its full config on the card: the parameter count, a
+def phase_full_model(arch, n_want, counters, plain, time_layer):
+    """``arch`` at its full config on the card: the parameter count, a
     prefill and 8 decode steps through the kernels and through the plain
-    versions (logits held together), then where a prefill's and a decode
-    step's time goes.  -> the parameters, for the serve phase."""
+    versions (``plain``, passed by name; logits held together), then where
+    a prefill's and a decode step's time goes (``time_layer(kind, lp, x,
+    cfg, cache, spent, lengths) -> x`` runs one block cut into segments)
+    and how much of each the card is busy.  ``counters`` name the kernel
+    wrappers whose launches each path prints.  -> the parameters."""
     import torch
     from repro_torch.configs import registry
-    from repro_torch.models import layers, lm
-    cfg = registry.get(YI)[0]
+    from repro_torch.models import lm
+    cfg = registry.get(arch)[0]
     n = lm.n_params(cfg)
-    if n != YI_PARAMS or cfg.dtype != "bfloat16":
-        raise AssertionError(f"{YI}: {n} parameters in {cfg.dtype}")
+    if n != n_want or cfg.dtype != "bfloat16":
+        raise AssertionError(f"{arch}: {n} parameters in {cfg.dtype}")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = lm.init_params(cfg, 0, device="cuda")
     torch.cuda.synchronize()
-    print(f"{YI}: {n} parameters ({cfg.param_dtype} at rest, {cfg.dtype} "
+    print(f"{arch}: {n} parameters ({cfg.param_dtype} at rest, {cfg.dtype} "
           f"compute), init {time.perf_counter() - t0:.3f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
     gen = torch.Generator(device="cuda")
@@ -924,114 +1075,132 @@ def phase_yi_model(fa, da) -> dict:
     b, s, nd = SERVE_BATCH, SERVE_CHUNK, 8
     toks = torch.randint(0, cfg.vocab, (b, s + nd), generator=gen,
                          device="cuda")
-    yi_steps(lm, params, cfg, toks, 1)                       # warm
+    model_steps(lm, params, cfg, toks, 1)                       # warm
     logits, times = {}, {}
-    plain = dict(flash_attention=fa.flash_attention_ref,
-                 decode_attention=da.decode_attention_ref)
     for path, kernels in (("kernel", {}), ("plain", plain)):
-        n0 = (fa.flash_attention.launches, da.decode_attention.launches)
-        logits[path], t_pre, t_dec = yi_steps(lm, params, cfg, toks, nd,
-                                              **kernels)
+        n0 = {k: f.launches for k, f in counters.items()}
+        logits[path], t_pre, t_dec = model_steps(lm, params, cfg, toks, nd,
+                                                 **kernels)
         times[path] = (t_pre, t_dec)
-        print(f"model {YI} {path} path: prefill {b} x {s} tokens "
+        print(f"model {arch} {path} path: prefill {b} x {s} tokens "
               f"{t_pre * 1e3:.2f} ms, decode step {t_dec * 1e3:.2f} ms "
-              f"(mean of {nd}); launches flash_attention "
-              f"{fa.flash_attention.launches - n0[0]}, decode_attention "
-              f"{da.decode_attention.launches - n0[1]}", flush=True)
+              f"(mean of {nd}); launches "
+              + ", ".join(f"{k} {f.launches - n0[k]}"
+                          for k, f in counters.items()), flush=True)
     a, w = logits["kernel"], logits["plain"]
     err = float((a - w).abs().max())
     mean = float((a - w).abs().mean())
-    tol = YI_LOGITS_TOL * float(w.abs().max())
+    tol = MODEL_LOGITS_TOL * float(w.abs().max())
     ok = bool(torch.isfinite(a).all()) and a.shape == (b, 1 + nd, cfg.vocab) \
         and err <= tol
-    print(f"model {YI} kernel vs plain logits over {1 + nd} steps: max abs "
-          f"diff {err:.4g} (mean {mean:.3g}, largest logit "
+    print(f"model {arch} kernel vs plain logits over {1 + nd} steps: max "
+          f"abs diff {err:.4g} (mean {mean:.3g}, largest logit "
           f"{float(w.abs().max()):.4g}), tolerance {tol:.4g} "
-          f"({YI_LOGITS_TOL:.0%} of the largest): "
+          f"({MODEL_LOGITS_TOL:.0%} of the largest): "
           f"{'ok' if ok else 'FAILED'}", flush=True)
     if not ok:
-        raise AssertionError(f"{YI} logits: kernel path != plain path")
+        raise AssertionError(f"{arch} logits: kernel path != plain path")
     # Where a prefill's and a decode step's time goes.
     p = params.tree()
-    per_layer = lm._layers(p, cfg)
     for name in ("prefill", "decode"):
         spent = {}
-        x = lm._embed_tokens(p, cfg, toks[:, :s] if name == "prefill"
-                             else toks[:, s:s + 1])
+        decode = name == "decode"
+        x = lm._embed_tokens(p, cfg, toks[:, s:s + 1] if decode
+                             else toks[:, :s])
         cache = lm._layer_caches(lm.init_cache(cfg, b, 2 * s, "cuda"), cfg)
-        lengths = None if name == "prefill" else \
-            torch.full((b,), s, dtype=torch.int32, device="cuda")
-        for (_, lp), lc in zip(per_layer, cache):
-            x, _ = timed_attn_layer(layers, lp, x, cfg, lc, spent,
-                                    lengths=lengths)
+        lengths = torch.full((b,), s, dtype=torch.int32, device="cuda") \
+            if decode else None
+        for (kind, lp), lc in zip(lm._layers(p, cfg), cache):
+            x = time_layer(kind, lp, x, cfg, lc, spent, lengths)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         lm._unembed(p, cfg, x[:, -1:])
         torch.cuda.synchronize()
         spent["unembed"] = time.perf_counter() - t0
         tot = sum(spent.values())
-        print(f"{YI} one {name}, {cfg.n_layers} blocks cut by "
+        print(f"{arch} one {name}, {cfg.n_layers} blocks cut by "
               f"synchronisations ({tot * 1e3:.2f} ms in all; uncut "
-              f"{times['kernel'][name == 'decode'] * 1e3:.2f} ms): "
+              f"{times['kernel'][decode] * 1e3:.2f} ms): "
               + ", ".join(f"{k} {v * 1e3:.2f} ms ({v / tot:.1%})"
                           for k, v in spent.items()), flush=True)
     # How much of a step the card is busy.
     _, cache = lm.prefill(params, cfg, {"tokens": toks[:, :s]},
                           lm.init_cache(cfg, b, 2 * s, "cuda"))
     lengths = torch.full((b,), s, dtype=torch.int32, device="cuda")
-    for name, fn, n in (
+    for name, fn, k in (
             ("prefill", lambda: lm.prefill(
                 params, cfg, {"tokens": toks[:, :s]},
                 lm.init_cache(cfg, b, 2 * s, "cuda")), 2),
             ("decode step", lambda: lm.decode_step(
                 params, cfg, toks[:, s:s + 1], lengths, cache), 3)):
-        wall, busy, idle = device_busy(fn, n)
-        print(f"{YI} one {name}: {wall:.2f} ms wall, {busy:.2f} ms of "
+        wall, busy, idle = device_busy(fn, k)
+        print(f"{arch} one {name}: {wall:.2f} ms wall, {busy:.2f} ms of "
               f"kernels and copies on the card (torch.profiler, mean of "
-              f"{n}), device idle share {idle:.1%}", flush=True)
-    print(f"{YI} model phase: max_memory_allocated "
+              f"{k}), device idle share {idle:.1%}", flush=True)
+    print(f"{arch} model phase: max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     return params
 
 
-def phase_yi_serve(fa, da, params) -> dict:
-    """The yi-6b serving path: calibrate once on the card, then asl, fifo
-    and greedy answer one Poisson stream on that cost model, at a rate
-    that puts half of the slot on prefill and a TTFT SLO of 4 x the mean
-    prompt's prefill; kernel counters set to 0 just before and read just
-    after.  Then the CLI once, in its own process, at that rate."""
-    import torch
+def phase_yi_model(fa, da):
+    """yi-6b at its full config on the card (:func:`phase_full_model`),
+    each attention block cut into casts, projections, attention and FFN.
+    -> the parameters, for the serve phase."""
+    from repro_torch.models import layers
+
+    def time_layer(kind, lp, x, cfg, cache, spent, lengths):
+        return timed_attn_layer(layers, lp, x, cfg, cache, spent,
+                                lengths=lengths)[0]
+    return phase_full_model(
+        YI, YI_PARAMS, {"flash_attention": fa.flash_attention,
+                        "decode_attention": da.decode_attention},
+        dict(flash_attention=fa.flash_attention_ref,
+             decode_attention=da.decode_attention_ref), time_layer)
+
+
+def phase_serve_once(arch, counters, params, *, with_decode) -> tuple:
+    """``arch``'s serving path: calibrate once on the card, then asl, fifo
+    and greedy answer one Poisson stream on that cost model for
+    SERVE_DURATION_S, with a TTFT SLO of 4 x the mean prompt's prefill.
+    The rate puts half of the slot on the mean request: its prompt's
+    prefill chunks, and (``with_decode``) its mean new tokens decoded at
+    batch 1.  The kernel counters are set to 0 just before and read just
+    after.  -> (launches, rate, SLO)."""
     from repro_torch.configs import registry
     from repro_torch.launch import serve
     from repro_torch.models import lm
-    cfg = registry.get(YI)[0]
-    fa.flash_attention.launches = 0
-    da.decode_attention.launches = 0
+    cfg = registry.get(arch)[0]
+    for f in counters.values():
+        f.launches = 0
     cost = serve.calibrated_cost(cfg, batch=SERVE_BATCH,
                                  prefill_chunk=SERVE_CHUNK, device="cuda",
                                  params=params)
     chunks = sum(-(-n // SERVE_CHUNK) for n in serve.PROMPT_LENS) \
         / len(serve.PROMPT_LENS)
-    rate = 0.5 / (chunks * cost.prefill_chunk_s)
+    new = sum(serve.NEW_TOKENS) / len(serve.NEW_TOKENS) if with_decode \
+        else 0
+    busy = chunks * cost.prefill_chunk_s + new * cost.decode_step_s
+    rate = 0.5 / busy
     slo = 4 * chunks * cost.prefill_chunk_s
     runs = {sched: serve.serve(cost, sched, rate=rate,
-                               duration=YI_DURATION_S, slo_ttft=slo)
+                               duration=SERVE_DURATION_S, slo_ttft=slo)
             for sched in SCHEDULERS}
-    launches = {"flash_attention": fa.flash_attention.launches,
-                "decode_attention": da.decode_attention.launches}
-    print(f"serve {YI}: calibrated prefill chunk "
+    launches = {k: f.launches for k, f in counters.items()}
+    print(f"serve {arch}: calibrated prefill chunk "
           f"{cost.prefill_chunk_s * 1e3:.2f} ms, decode step "
           f"{cost.decode_step_s * 1e3:.2f} ms; Poisson {rate:.4f} "
-          f"requests/s (0.5 / ({chunks:.3f} chunks x prefill chunk)) for "
-          f"{YI_DURATION_S:.0f} s, TTFT SLO {slo:.3f} s", flush=True)
-    check_serve_runs(YI, lm.n_params(cfg), cfg.dtype,
+          f"requests/s (0.5 / ({chunks:.3f} chunks x prefill chunk + "
+          f"{new:.0f} x decode step = {busy:.3f} s)) for "
+          f"{SERVE_DURATION_S:.0f} s, TTFT SLO {slo:.3f} s", flush=True)
+    check_serve_runs(arch, lm.n_params(cfg), cfg.dtype,
                      {"decode_step_s": cost.decode_step_s,
                       "prefill_chunk_s": cost.prefill_chunk_s}, runs)
-    print(f"serve {YI}: launches {launches} (one calibration: 6 prefills "
-          f"and 21 decode steps of {cfg.n_layers} layers)", flush=True)
+    print(f"serve {arch}: launches {launches} (one calibration: 6 "
+          f"prefills and 21 decode steps of {cfg.n_layers} layers)",
+          flush=True)
     if min(launches.values()) <= 0:
-        raise AssertionError(f"the {YI} serving path launched no "
-                             f"attention kernel: {launches}")
+        raise AssertionError(f"the {arch} serving path launched a kernel "
+                             f"no time: {launches}")
     return launches, rate, slo
 
 
@@ -1041,7 +1210,7 @@ def phase_yi_cli(rate, slo) -> None:
     and prints each scheduler's row."""
     cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
            "yi-6b", "--rate", f"{rate:.6f}", "--duration",
-           f"{YI_DURATION_S:.0f}", "--slo-ttft", f"{slo:.6f}",
+           f"{SERVE_DURATION_S:.0f}", "--slo-ttft", f"{slo:.6f}",
            "--scheduler", *SCHEDULERS]
     print("$ " + " ".join(cmd[1:]), flush=True)
     t0 = time.perf_counter()
@@ -1055,6 +1224,127 @@ def phase_yi_cli(rate, slo) -> None:
     if res.returncode != 0 or res.stdout.count("scheduler=") != 3:
         print(res.stderr[-4000:], file=sys.stderr)
         raise AssertionError(f"the {YI} serve CLI failed")
+
+
+# ---------------------------------------------------------------------------
+# recurrentgemma-2b: rglru_scan, the model and its server
+# ---------------------------------------------------------------------------
+
+def rglru_inputs(gen, b, s, r, dtype, h0) -> tuple:
+    """a = sigmoid(normal) in (0, 1), as the model makes it, and x normal,
+    both in ``dtype``; h0 normal f32 or None; all on the card."""
+    import torch
+    f = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    a = torch.sigmoid(f(b, s, r)).to(dtype)
+    return a, f(b, s, r).to(dtype), f(b, r) if h0 else None
+
+
+def rglru_check(got, want, dtype) -> tuple:
+    """(max abs error, within RGLRU_TOL: bit for bit in f32)."""
+    import torch
+    err = float((got.float() - want.float()).abs().max())
+    tol = RGLRU_TOL[str(dtype).replace("torch.", "")]
+    ok = got.dtype == want.dtype and got.shape == want.shape and (
+        torch.equal(got, want) if tol == 0 else
+        torch.allclose(got.float(), want.float(), atol=tol, rtol=tol))
+    return err, ok
+
+
+def rglru_bound(b, s, r, esize, h0) -> tuple:
+    """Least time of one scan: a and x read once and every h_t written
+    once (in their type), h0 read once; 2 f32 operations per element over
+    the non-tensor f32 rate."""
+    n_bytes = 3 * b * s * r * esize + (4 * b * r if h0 else 0)
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * b * s * r / FP32_OPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                           "operations")
+
+
+def phase_rglru(rs) -> dict:
+    """rglru_scan == its plain version on the card over the listed cases
+    (bit for bit in f32: h, and so the last carry h[:, -1]), then one
+    launch at the serving shape timed against its bound."""
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    n_bad = n_cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for s in (1, 7, 256):
+            for r in (2560, 100):
+                for h0 in (False, True):
+                    a, x, h = rglru_inputs(gen, 2, s, r, dtype, h0)
+                    n0 = rs.rglru_scan.launches
+                    got = rs.rglru_scan(a, x, h)
+                    torch.cuda.synchronize()
+                    err, ok = rglru_check(got, rs.rglru_scan_ref(a, x, h),
+                                          dtype)
+                    ok = ok and rs.rglru_scan.launches == n0 + 1
+                    n_cases += 1
+                    n_bad += not ok
+                    print(f"rglru_scan {dtype} B=2 S={s} R={r} h0={h0}: "
+                          f"max abs err {err:.3g} "
+                          f"{'ok' if ok else 'OVER TOLERANCE'}", flush=True)
+    print(f"rglru_scan sweep: {n_cases - n_bad}/{n_cases} cases within "
+          f"tolerance (f32 bit for bit, bf16 within "
+          f"{RGLRU_TOL['bfloat16']})", flush=True)
+    if n_bad:
+        raise AssertionError(f"rglru_scan != plain in {n_bad} cases")
+    # The serving shape: a prefill chunk of the calibration, as the model
+    # calls the kernel (f32 a and x, no h0).
+    b, s, r = SERVE_BATCH, SERVE_CHUNK, 2560
+    a, x, _ = rglru_inputs(gen, b, s, r, torch.float32, False)
+    kernel_ms, times = median_ms(lambda: rs.rglru_scan(a, x), reps=100)
+    _, dev_ms, _ = device_busy(lambda: rs.rglru_scan(a, x), 100)
+    got = rs.rglru_scan(a, x)
+    out = {}
+    plain_ms = cuda_ms(lambda: out.update(want=rs.rglru_scan_ref(a, x)))
+    err, ok = rglru_check(got, out["want"], torch.float32)
+    bnd, by = rglru_bound(b, s, r, 4, False)
+    print(f"rglru_scan serving shape B={b} S={s} R={r} f32: kernel "
+          f"{kernel_ms:.4f} ms/launch (of {[round(t, 4) for t in times]}; "
+          f"on the card {dev_ms:.4f}), plain {plain_ms:.2f} ms, bound "
+          f"{bnd:.5f} ms ({by}), max abs err {err:.3g}", flush=True)
+    if not ok:
+        raise AssertionError("rglru_scan != plain at the serving shape")
+    # The decode shape: one step from a carry.
+    a1, x1, h1 = rglru_inputs(gen, b, 1, r, torch.float32, True)
+    dec_ms, _ = median_ms(lambda: rs.rglru_scan(a1, x1, h1), reps=100)
+    _, dec_dev_ms, _ = device_busy(lambda: rs.rglru_scan(a1, x1, h1), 100)
+    err1, ok1 = rglru_check(rs.rglru_scan(a1, x1, h1),
+                            rs.rglru_scan_ref(a1, x1, h1), torch.float32)
+    print(f"rglru_scan decode shape B={b} S=1 R={r} with h0: kernel "
+          f"{dec_ms:.4f} ms/launch (on the card {dec_dev_ms:.4f}), bound "
+          f"{rglru_bound(b, 1, r, 4, True)[0]:.6f} ms, max abs err "
+          f"{err1:.3g}", flush=True)
+    if not ok1:
+        raise AssertionError("rglru_scan != plain at the decode shape")
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "max_abs_err": err,
+            "bound_ms": bnd, "bound_by": by}
+
+
+def phase_rg_model(rs, fa, da):
+    """recurrentgemma-2b at its full config on the card
+    (:func:`phase_full_model`), each RG-LRU block cut into casts, RG-LRU
+    projections, conv and gates, ``rglru_scan`` and FFN, and each local
+    attention block into casts, projections, attention and FFN.  -> the
+    parameters, for the serve phase."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers, rglru
+
+    def time_layer(kind, lp, x, cfg, cache, spent, lengths):
+        if kind == "rglru":
+            return timed_rglru_layer(rglru, layers, ops, lp, x, cfg, cache,
+                                     spent, decode=lengths is not None)
+        return timed_attn_layer(layers, lp, x, cfg, cache, spent,
+                                lengths=lengths, local=True)[0]
+    return phase_full_model(
+        RG, RG_PARAMS, {"rglru_scan": rs.rglru_scan,
+                        "flash_attention": fa.flash_attention,
+                        "decode_attention": da.decode_attention},
+        dict(rglru_scan=rs.rglru_scan_ref,
+             flash_attention=fa.flash_attention_ref,
+             decode_attention=da.decode_attention_ref), time_layer)
 
 
 def main() -> int:
@@ -1072,6 +1362,7 @@ def main() -> int:
         from repro_torch.kernels import mlstm_scan as ms
         from repro_torch.kernels import decode_attention as da
         from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import rglru_scan as rs
     except ImportError as e:
         print(f"chip_smoke: the port's package is missing ({e}); run from "
               f"the repository root", file=sys.stderr)
@@ -1084,9 +1375,12 @@ def main() -> int:
         print(f"built {sorted(logs) or 'nothing (cached)'} in "
               f"{time.time() - t0:.1f} s", flush=True)
         for name, log in logs.items():
+            entry = ""
             for line in log.splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"  {name}: {line.strip()}")
+                if "Compiling entry" in line:
+                    entry = instantiation(line)
+                elif "registers" in line or "spill" in line:
+                    print(f"  {name} {entry}: {line.strip()}")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         phase_parity(sl, simstep)
@@ -1098,10 +1392,22 @@ def main() -> int:
         flash = phase_flash(fa)
         dec = phase_decode(da)
         params = phase_yi_model(fa, da)
-        yi_launches, rate, slo = phase_yi_serve(fa, da, params)
+        yi_launches, rate, slo = phase_serve_once(
+            YI, {"flash_attention": fa.flash_attention,
+                 "decode_attention": da.decode_attention}, params,
+            with_decode=False)
         del params
         torch.cuda.empty_cache()
         phase_yi_cli(rate, slo)
+        rglru = phase_rglru(rs)
+        params = phase_rg_model(rs, fa, da)
+        rg_launches, _, _ = phase_serve_once(
+            RG, {"rglru_scan": rs.rglru_scan,
+                 "flash_attention": fa.flash_attention,
+                 "decode_attention": da.decode_attention}, params,
+            with_decode=True)
+        del params
+        torch.cuda.empty_cache()
     except Exception:
         traceback.print_exc()
         return 1
@@ -1119,6 +1425,13 @@ def main() -> int:
         launches=serve_run["launches"], max_abs_err=mlstm["max_abs_err"],
         ms=mlstm["ms"], plain_ms=mlstm["plain_ms"],
         bound_ms=mlstm["bound_ms"], bound_by=mlstm["bound_by"],
+        library_ms=None), dict(
+        name="rglru_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/rglru_scan.cu",
+        replaces="src/repro/kernels/rglru_scan.py:43",
+        launches=rg_launches["rglru_scan"], max_abs_err=rglru["max_abs_err"],
+        ms=rglru["ms"], plain_ms=rglru["plain_ms"],
+        bound_ms=rglru["bound_ms"], bound_by=rglru["bound_by"],
         library_ms=None)] + [dict(
         name=name, route="cuda",
         source=f"src/repro_torch/kernels/csrc/{name}.cu", replaces=where,

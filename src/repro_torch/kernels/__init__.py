@@ -12,6 +12,9 @@
   ``repro/kernels/decode_attention.py::decode_attention``).
   Their plain versions are in :mod:`.ref`, and :mod:`.ops` dispatches the
   attention layers to them.
+* :mod:`.rglru_scan` — the RG-LRU linear recurrence (replaces the TPU
+  kernel ``repro/kernels/rglru_scan.py::rglru_scan``); its plain version
+  is in :mod:`.ref`, and :mod:`.ops` dispatches the RG-LRU blocks to it.
 * :mod:`.build` — builds ``csrc/*.cu`` with ``nvcc`` at first use and
   loads them with ``ctypes``.
 """

@@ -6,14 +6,17 @@
 // the tile and scalar-prefetched lengths to skip blocks past a sequence's
 // end.  Per batch row b, kv head kh and query head h = kh * g + i:
 //
-//   s_ij = (q_h . k_j) * scale,  masked to -1e30 where j >= lengths[b]
+//   s_ij = (q_h . k_j) * scale over the row's valid slots j
 //   o_h  = sum_j softmax_j(s_ij) v_j,   f32 throughout, written in q's type
 //
 // Layout: q and o are [B, H, dh], the caches [B, K, T, dh], each given by
 // its outer strides in elements (the head dim is contiguous), so the model
 // passes its [B, T, K, dh] caches as transposed views and nothing is
-// copied per step.  lengths: [B] int32, the number of leading valid
-// slots (a prefix) of each row.  f32 or bf16 q and caches.
+// copied per step.  lengths: [B] int32 and starts: [B] int32 or null
+// (zeros): row b's valid slots are the ring run (starts[b] + j) mod T for
+// j < lengths[b], a prefix when the start is 0.  A local-attention block's
+// cache is a ring of window + 1 slots, and once it wraps its valid slots
+// are such a run that does not begin at slot 0.  f32 or bf16 q and caches.
 //
 // What bounds it on this card: one query reads each valid cache row once.
 // At the serving shape (B=8, H=32, K=4, T=512, 257 valid rows, dh=128,
@@ -27,14 +30,15 @@
 // What the design does: one block of 256 threads per (kv head, batch).
 // The group's q rows are staged once in shared memory as f32; the block
 // walks only the ceil(length / 64) kv tiles that hold valid rows (the TPU
-// kernel's skip of invalid blocks, decode_attention.py:41-44), staging
-// each as f32 (k rows padded to dh + 1 floats so threads reading different
-// rows at one column hit different banks).  Per tile: every (row, key)
-// score by one thread; one warp per q row updates that row's running max
-// and denominator and turns its scores into probabilities; then every
-// thread accumulates its (row, column) outputs in registers, rescaled by
-// the row's alpha.  Rows past the length (or past T) are zero-filled and
-// never weigh.
+// kernel's skip of invalid blocks, decode_attention.py:41-44), in ring
+// order from the row's start (softmax does not depend on the order of the
+// slots), staging each as f32 (k rows padded to dh + 1 floats so threads
+// reading different rows at one column hit different banks).  Per tile:
+// every (row, key) score by one thread; one warp per q row updates that
+// row's running max and denominator and turns its scores into
+// probabilities; then every thread accumulates its (row, column) outputs
+// in registers, rescaled by the row's alpha.  Rows past the length (or
+// past T) are zero-filled and never weigh.
 //
 // Numerics: f32 scores and accumulation (explicit fmaf; the port builds
 // every source with -fmad=false); softmax in the TPU kernel's order:
@@ -84,7 +88,8 @@ template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads)
     decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                             const T* __restrict__ vc,
-                            const int* __restrict__ lengths, T* __restrict__ o,
+                            const int* __restrict__ lengths,
+                            const int* __restrict__ starts, T* __restrict__ o,
                             int g, int T_len, Strides sq, Strides sk,
                             Strides sv, Strides so, float scale) {
   constexpr int LD = DH + 1;     // padded row stride of the k tile
@@ -103,6 +108,9 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = tid % kWarp, warp = tid / kWarp;
   const int n_out = g * DH;
   const int len = min(lengths[bb], T_len);
+  // The run's first slot, in [0, T): slot (start + j) mod T for j < len.
+  const int start =
+      starts != nullptr ? ((starts[bb] % T_len) + T_len) % T_len : 0;
 
   const T* qb = q + bb * sq.b + (kh * g) * sq.h;
   const T* kb = kc + bb * sk.b + kh * sk.h;
@@ -127,8 +135,9 @@ __global__ void __launch_bounds__(kThreads)
       const int r = e / DH, d = e % DH;
       const int jk = k0 + r;
       const bool in = jk < len;
-      Ks[r * LD + d] = in ? to_f32(kb[jk * sk.s + d]) : 0.0f;
-      Vs[r * DH + d] = in ? to_f32(vb[jk * sv.s + d]) : 0.0f;
+      const int slot = start + jk < T_len ? start + jk : start + jk - T_len;
+      Ks[r * LD + d] = in ? to_f32(kb[slot * sk.s + d]) : 0.0f;
+      Vs[r * DH + d] = in ? to_f32(vb[slot * sv.s + d]) : 0.0f;
     }
     __syncthreads();
 
@@ -198,8 +207,8 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T, int DH>
 int launch(const void* q, const void* kc, const void* vc, const int* lengths,
-           void* o, int B, int H, int KH, int T_len, const long long* st,
-           float scale, void* stream) {
+           const int* starts, void* o, int B, int H, int KH, int T_len,
+           const long long* st, float scale, void* stream) {
   const int g = H / KH;
   const size_t smem = smem_bytes(g, DH);
   cudaError_t err = cudaFuncSetAttribute(
@@ -212,28 +221,29 @@ int launch(const void* q, const void* kc, const void* vc, const int* lengths,
   decode_attention_kernel<T, DH>
       <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const T*>(q), static_cast<const T*>(kc),
-          static_cast<const T*>(vc), lengths, static_cast<T*>(o), g, T_len,
-          sq, sk, sv, so, scale);
+          static_cast<const T*>(vc), lengths, starts, static_cast<T*>(o), g,
+          T_len, sq, sk, sv, so, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch(const void* q, const void* kc, const void* vc,
-             const int* lengths, void* o, int B, int H, int KH, int T_len,
-             int dh, const long long* st, float scale, void* stream) {
+             const int* lengths, const int* starts, void* o, int B, int H,
+             int KH, int T_len, int dh, const long long* st, float scale,
+             void* stream) {
   switch (dh) {
     case 32:
-      return launch<T, 32>(q, kc, vc, lengths, o, B, H, KH, T_len, st, scale,
-                           stream);
+      return launch<T, 32>(q, kc, vc, lengths, starts, o, B, H, KH, T_len,
+                           st, scale, stream);
     case 64:
-      return launch<T, 64>(q, kc, vc, lengths, o, B, H, KH, T_len, st, scale,
-                           stream);
+      return launch<T, 64>(q, kc, vc, lengths, starts, o, B, H, KH, T_len,
+                           st, scale, stream);
     case 128:
-      return launch<T, 128>(q, kc, vc, lengths, o, B, H, KH, T_len, st,
-                            scale, stream);
+      return launch<T, 128>(q, kc, vc, lengths, starts, o, B, H, KH, T_len,
+                            st, scale, stream);
     case 256:
-      return launch<T, 256>(q, kc, vc, lengths, o, B, H, KH, T_len, st,
-                            scale, stream);
+      return launch<T, 256>(q, kc, vc, lengths, starts, o, B, H, KH, T_len,
+                            st, scale, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -243,29 +253,32 @@ int dispatch(const void* q, const void* kc, const void* vc,
 
 extern "C" {
 
-// o = decode attention of q against the first lengths[b] slots of each
-// row's caches, on `stream`.  The group's g * dh outputs are at most
-// 16 x 256 (kMaxOut per thread), and its shared memory within a block's
-// limit; the wrapper checks both.  q, o: [B, H, dh]; k_cache, v_cache:
-// [B, KH, T, dh], H % KH == 0; lengths: [B] int32 on the device.  f32
-// (bf16 = 0) or bf16 (bf16 = 1), all of one type.  `strides` holds 10
-// element strides: (batch, head) of q, (batch, head, row) of k_cache and
-// v_cache, (batch, head) of o; the head dim is contiguous.  dh is 32, 64,
-// 128 or 256.  Returns the cudaError_t of the launch (0 = success).
+// o = decode attention of q against the valid slots of each row's caches,
+// on `stream`: (starts[b] + j) mod T for j < lengths[b], where starts may
+// be null (zeros).  The group's g * dh outputs are at most 16 x 256
+// (kMaxOut per thread), and its shared memory within a block's limit; the
+// wrapper checks both.  q, o: [B, H, dh]; k_cache, v_cache: [B, KH, T, dh],
+// H % KH == 0; lengths, starts: [B] int32 on the device.  f32 (bf16 = 0)
+// or bf16 (bf16 = 1), all of one type.  `strides` holds 10 element
+// strides: (batch, head) of q, (batch, head, row) of k_cache and v_cache,
+// (batch, head) of o; the head dim is contiguous.  dh is 32, 64, 128 or
+// 256.  Returns the cudaError_t of the launch (0 = success).
 int decode_attention_launch(const void* q, const void* k_cache,
-                            const void* v_cache, const void* lengths, void* o,
+                            const void* v_cache, const void* lengths,
+                            const void* starts, void* o,
                             int B, int H, int KH, int T_len, int dh,
                             const long long* strides, float scale, int bf16,
                             int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int* lens = static_cast<const int*>(lengths);
+  const int* st = static_cast<const int*>(starts);
   if (bf16) {
-    return dispatch<__nv_bfloat16>(q, k_cache, v_cache, lens, o, B, H, KH,
-                                   T_len, dh, strides, scale, stream);
+    return dispatch<__nv_bfloat16>(q, k_cache, v_cache, lens, st, o, B, H,
+                                   KH, T_len, dh, strides, scale, stream);
   }
-  return dispatch<float>(q, k_cache, v_cache, lens, o, B, H, KH, T_len, dh,
-                         strides, scale, stream);
+  return dispatch<float>(q, k_cache, v_cache, lens, st, o, B, H, KH, T_len,
+                         dh, strides, scale, stream);
 }
 
 const char* decode_attention_error_string(int code) {

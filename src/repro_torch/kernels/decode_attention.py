@@ -5,8 +5,9 @@ Replaces the TPU kernel
 ``repro/kernels/decode_attention.py::decode_attention`` with a CUDA kernel
 written for Hopper (``csrc/decode_attention.cu``; its header says what
 bounds it and how the design answers that).  The semantics are the plain
-PyTorch version :func:`decode_attention_ref` (``kernels/ref.py``): the
-first ``lengths[b]`` slots of row ``b`` are valid (a prefix).
+PyTorch version :func:`decode_attention_ref` (``kernels/ref.py``): row
+``b``'s valid slots are the ring run ``(starts[b] + j) mod T`` for
+``j < lengths[b]``, a prefix when ``starts`` is None or zero.
 
 :func:`decode_attention` launches the kernel on CUDA tensors, for every
 ``T >= 1`` and every length, and raises on anything the kernel does not
@@ -45,7 +46,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("decode_attention")
     fn = lib.decode_attention_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float]
                        + [ctypes.c_int] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -54,7 +55,7 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(q, k_cache, v_cache, lengths) -> None:
+def _check(q, k_cache, v_cache, lengths, starts) -> None:
     """Raise on anything the kernel does not take."""
     if q.dim() != 3 or k_cache.dim() != 4 or v_cache.dim() != 4:
         raise ValueError(f"q must be [B,H,dh] and the caches [B,K,T,dh], got "
@@ -78,25 +79,27 @@ def _check(q, k_cache, v_cache, lengths) -> None:
     if min(b, t) < 1:
         raise ValueError(f"empty decode: q {tuple(q.shape)}, caches "
                          f"{tuple(k_cache.shape)}")
-    if lengths.device != q.device or lengths.dtype != torch.int32 \
-            or tuple(lengths.shape) != (b,):
-        raise ValueError(f"lengths must be int32 [{b}] on {q.device}, got "
-                         f"{lengths.dtype} {tuple(lengths.shape)} on "
-                         f"{lengths.device}")
+    for name, x in (("lengths", lengths), ("starts", starts)):
+        if x is not None and (x.device != q.device or x.dtype != torch.int32
+                              or tuple(x.shape) != (b,)):
+            raise ValueError(f"{name} must be int32 [{b}] on {q.device}, "
+                             f"got {x.dtype} {tuple(x.shape)} on "
+                             f"{x.device}")
 
 
-def decode_attention(q, k_cache, v_cache, lengths):
-    """q: [B,H,dh]; caches: [B,K,T,dh] (GQA: H % K == 0); lengths: [B]
-    int32, valid leading slots per row -> [B,H,dh] in q's dtype.  f32 or
-    bf16; any strides with the head dim contiguous (the model passes its
-    [B,T,K,dh] caches as transposed views).
+def decode_attention(q, k_cache, v_cache, lengths, starts=None):
+    """q: [B,H,dh]; caches: [B,K,T,dh] (GQA: H % K == 0); lengths, starts:
+    [B] int32 (starts None: zeros), row b's valid slots
+    ``(starts[b] + j) mod T`` for ``j < lengths[b]`` -> [B,H,dh] in q's
+    dtype.  f32 or bf16; any strides with the head dim contiguous (the
+    model passes its [B,T,K,dh] caches as transposed views).
 
     CUDA tensors launch the kernel (or raise); CPU tensors run
     :func:`decode_attention_ref`."""
-    _check(q, k_cache, v_cache, lengths)
+    _check(q, k_cache, v_cache, lengths, starts)
     dev = q.device
     if dev.type == "cpu":
-        return decode_attention_ref(q, k_cache, v_cache, lengths)
+        return decode_attention_ref(q, k_cache, v_cache, lengths, starts)
     if dev.type != "cuda":
         raise ValueError(f"the decode_attention kernel runs on CUDA tensors, "
                          f"not {dev}")
@@ -113,6 +116,8 @@ def decode_attention(q, k_cache, v_cache, lengths):
         raise ValueError("the head dim of q and the caches must be "
                          "contiguous")
     lengths = lengths.contiguous()
+    if starts is not None:
+        starts = starts.contiguous()
     out = torch.empty((b, h, dh), dtype=q.dtype, device=dev)
     strides = (ctypes.c_longlong * 10)(
         q.stride(0), q.stride(1), *k_cache.stride()[:3],
@@ -122,7 +127,8 @@ def decode_attention(q, k_cache, v_cache, lengths):
     lib = _lib()
     err = lib.decode_attention_launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), b, h, kh, t, dh, strides,
+        lengths.data_ptr(), None if starts is None else starts.data_ptr(),
+        out.data_ptr(), b, h, kh, t, dh, strides,
         float(1.0 / np.sqrt(dh)), _DTYPES[q.dtype], index,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

@@ -4,9 +4,9 @@ Each entry point takes the JAX package's layout and sends its tensors to
 the kernel's wrapper, which launches the CUDA kernel on CUDA tensors (for
 every shape the kernel takes: unlike the reference's dispatch there is no
 small-shape detour to the oracle) and runs the plain version on CPU
-tensors.  The mLSTM block calls :func:`mlstm_scan`; the attention layers
-call :func:`flash_attention` (prefill) and :func:`decode_attention`
-(decode).
+tensors.  The mLSTM block calls :func:`mlstm_scan`; the RG-LRU block
+:func:`rglru_scan`; the attention layers call :func:`flash_attention`
+(prefill) and :func:`decode_attention` (decode).
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import torch
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import mlstm_scan as _mlstm
+from repro_torch.kernels import rglru_scan as _rglru
 
 
 def flash_attention(q, k, v, *, causal=True, window=0):
@@ -25,11 +26,14 @@ def flash_attention(q, k, v, *, causal=True, window=0):
     return _flash.flash_attention(q, k, v, causal=causal, window=window)
 
 
-def decode_attention(q, k_cache, v_cache, lengths):
+def decode_attention(q, k_cache, v_cache, lengths, starts=None):
     """q: [B,H,dh]; caches: [B,K,T,dh] (strided views taken as they are);
-    lengths: [B], the valid leading slots of each row -> [B,H,dh]."""
+    lengths: [B] and starts: [B] or None (zeros): row b's valid slots are
+    ``(starts[b] + j) mod T`` for ``j < lengths[b]`` -> [B,H,dh]."""
+    if starts is not None:
+        starts = starts.to(torch.int32)
     return _decode.decode_attention(q, k_cache, v_cache,
-                                    lengths.to(torch.int32))
+                                    lengths.to(torch.int32), starts)
 
 
 def mlstm_scan(q, k, v, i_gate, f_gate, carry=None):
@@ -41,3 +45,13 @@ def mlstm_scan(q, k, v, i_gate, f_gate, carry=None):
     if carry is not None:
         carry = tuple(t.float().contiguous() for t in carry)
     return _mlstm.mlstm_scan(q, k, v, i_gate, f_gate, carry)
+
+
+def rglru_scan(a, x, h0=None):
+    """a, x: [B,S,R]; h0: [B,R] or None -> h [B,S,R] in a's dtype.  The
+    carry is taken in f32 and every operand contiguous, as the kernel
+    takes them."""
+    a, x = a.contiguous(), x.contiguous()
+    if h0 is not None:
+        h0 = h0.float().contiguous()
+    return _rglru.rglru_scan(a, x, h0)

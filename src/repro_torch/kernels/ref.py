@@ -34,19 +34,23 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0):
     return out.reshape(b, h, s, dh).to(q.dtype)
 
 
-def decode_attention_ref(q, k_cache, v_cache, lengths):
-    """q: [B,H,dh]; caches: [B,K,T,dh]; lengths: [B] -> [B,H,dh].
+def decode_attention_ref(q, k_cache, v_cache, lengths, starts=None):
+    """q: [B,H,dh]; caches: [B,K,T,dh]; lengths: [B]; starts: [B] or None
+    (zeros) -> [B,H,dh].
 
-    The first ``lengths[b]`` slots of row b are valid; f32 throughout,
-    masked scores ``-inf``; the result in q's dtype."""
+    Row b's valid slots are the ring run ``(starts[b] + j) mod T`` for
+    ``j < lengths[b]`` (a prefix when ``starts[b] == 0``); f32
+    throughout, masked scores ``-inf``; the result in q's dtype."""
     b, h, dh = q.shape
     kh, t = k_cache.shape[1], k_cache.shape[2]
     g = h // kh
     qf = q.float().reshape(b, kh, g, dh)
     scores = torch.einsum("bkgd,bktd->bkgt", qf, k_cache.float()) \
         / float(np.sqrt(dh))
-    valid = torch.arange(t, device=q.device)[None, :] \
-        < lengths.to(q.device)[:, None]                          # [B,T]
+    slot = torch.arange(t, device=q.device)[None, :]
+    if starts is not None:
+        slot = torch.remainder(slot - starts.to(q.device)[:, None], t)
+    valid = slot < lengths.to(q.device)[:, None]                 # [B,T]
     scores = scores.masked_fill(~valid[:, None, None, :], float("-inf"))
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgt,bktd->bkgd", probs, v_cache.float())
@@ -57,6 +61,19 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus``: ``logaddexp(x, 0)`` (not ``F.softplus``, which
     switches to ``x`` above 20 and rounds differently below)."""
     return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def rglru_scan_ref(a, x, h0=None):
+    """``h_t = a_t * h_{t-1} + x_t`` per (batch, channel), a time loop in
+    f32 (the product, then the sum).  a, x: [B,S,R]; h0: [B,R] f32 or
+    None (zeros) -> h [B,S,R] in a's dtype."""
+    af, xf = a.float(), x.float()
+    h = torch.zeros_like(af[:, 0]) if h0 is None else h0.float()
+    hs = []
+    for t in range(a.shape[1]):
+        h = af[:, t] * h + xf[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1).to(a.dtype)
 
 
 def mlstm_scan_ref(q, k, v, i_gate, f_gate, carry=None):

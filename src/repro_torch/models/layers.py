@@ -10,8 +10,10 @@ run another implementation of the same function (``chip_smoke.py`` runs
 the plain versions on the card that way).  The kernels do P.V in f32;
 the JAX package's jnp attention rounds the probabilities to the compute
 dtype first (``probs.astype(dtype)``), so in bf16 the two differ by that
-rounding.  Only full (``local=False``) attention blocks run so far: a
-local block's ring cache needs a decode mask that is not a prefix.
+rounding.  Local (``local=True``) blocks attend within
+``cfg.local_window`` positions; their decode mask on a wrapped ring is a
+run of slots that need not start at slot 0, which the decode kernel takes
+as a per-row ring start.
 
 The JAX package's sharding constraint (``constrain``) is a no-op on one
 device and is dropped.
@@ -131,32 +133,40 @@ def cache_slot_positions(last_pos, t_cache: int):
     return last_pos - torch.remainder(last_pos - s, t_cache)
 
 
-def decode_attention(q, k_cache, v_cache, lengths, *, dtype=torch.bfloat16,
-                     decode_attention=None):
+def decode_run(last_pos, t_cache: int, window: int = 0):
+    """(length, start) of the reference's position-aware decode mask after
+    writing ``last_pos``: the slots holding positions in
+    ``(last_pos - window, last_pos]`` (``window`` 0: no limit) that were
+    written.  They are one run of ``length`` slots in ring order, ending
+    at the write slot ``last_pos mod t_cache``, so they begin at
+    ``start = (last_pos - length + 1) mod t_cache``."""
+    pos = cache_slot_positions(last_pos, t_cache)              # [T]
+    valid = (pos >= 0) & (pos <= last_pos)
+    if window:
+        valid &= pos > last_pos - window
+    n = valid.sum()
+    return n, torch.remainder(last_pos - n + 1, t_cache)
+
+
+def decode_attention(q, k_cache, v_cache, lengths, starts=None, *,
+                     dtype=torch.bfloat16, decode_attention=None):
     """Single-token attention against the cache. q: [B,1,H,dh]; caches:
-    [B,T,K,dh]; lengths: [B], the valid leading slots of each row ->
+    [B,T,K,dh]; lengths, starts: [B] (starts None: zeros), row b's valid
+    slots ``(starts[b] + j) mod T`` for ``j < lengths[b]`` ->
     [B,1,H,dh].
 
-    The reference takes a ``[B,T]`` validity mask; the kernel expresses
-    only a prefix of valid slots, so the port takes its length, which the
-    attention block counts from the same position-aware mask."""
+    The reference takes a ``[B,T]`` validity mask; the kernel takes the
+    ring run that mask is (:func:`decode_run`)."""
     b, _, h, dh = q.shape
     fn = decode_attention or ops.decode_attention
     out = fn(q[:, 0], k_cache.transpose(1, 2), v_cache.transpose(1, 2),
-             lengths)
+             lengths, starts)
     return out.reshape(b, 1, h, dh).to(dtype)
 
 
 # ---------------------------------------------------------------------------
 # Attention block (params schema + apply / prefill / decode)
 # ---------------------------------------------------------------------------
-
-def _full_only(local: bool) -> None:
-    if local:
-        raise NotImplementedError(
-            "local attention blocks are not ported to repro_torch yet: "
-            "their ring cache needs a decode mask that is not a prefix")
-
 
 def attn_schema(cfg: ModelConfig, *, local: bool) -> dict:
     d, h, k, dh, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
@@ -212,12 +222,12 @@ def attn_block_apply(p, x, cfg: ModelConfig, *, local: bool, positions,
     """Full residual block (train/prefill, no cache). x: [B,S,D].
     ``kernels`` may name a ``flash_attention`` to run (default: the
     kernel's dispatch); other entries are for other blocks."""
-    _full_only(local)
     dtype = cfg.compute_dtype()
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = _qkv(p, h, cfg, positions, dtype)
-    out = attention(q, k, v, causal=cfg.causal, q_offset=q_offset,
-                    dtype=dtype,
+    out = attention(q, k, v, causal=cfg.causal,
+                    window=cfg.local_window if local else 0,
+                    q_offset=q_offset, dtype=dtype,
                     flash_attention=kernels.get("flash_attention"))
     return _out_and_mlp(p, x, out, cfg, dtype)
 
@@ -226,7 +236,6 @@ def attn_block_prefill(p, x, cfg: ModelConfig, *, local: bool, positions,
                        cache, **kernels):
     """Like apply, but also fills the KV cache; returns (x, cache).  The
     input cache is not modified."""
-    _full_only(local)
     dtype = cfg.compute_dtype()
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = _qkv(p, h, cfg, positions, dtype)
@@ -241,7 +250,8 @@ def attn_block_prefill(p, x, cfg: ModelConfig, *, local: bool, positions,
     else:
         new = {n: torch.cat([t.to(cache[n].dtype), cache[n][:, s:]], dim=1)
                for n, t in (("k", k), ("v", v))}
-    out = attention(q, k, v, causal=cfg.causal, dtype=dtype,
+    out = attention(q, k, v, causal=cfg.causal,
+                    window=cfg.local_window if local else 0, dtype=dtype,
                     flash_attention=kernels.get("flash_attention"))
     return _out_and_mlp(p, x, out, cfg, dtype), new
 
@@ -252,7 +262,6 @@ def attn_block_decode(p, x, cfg: ModelConfig, *, local: bool, positions,
     sequence passes T).  The batch decodes at the shared position
     ``lengths[0]``, as in the reference.  ``kernels`` may name
     a ``decode_attention`` to run.  The input cache is not modified."""
-    _full_only(local)
     dtype = cfg.compute_dtype()
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = _qkv(p, h, cfg, positions, dtype)
@@ -261,13 +270,14 @@ def attn_block_decode(p, x, cfg: ModelConfig, *, local: bool, positions,
     slot = torch.remainder(pos0, t_cache).reshape(1)
     kc = cache["k"].index_copy(1, slot, k.to(cache["k"].dtype))
     vc = cache["v"].index_copy(1, slot, v.to(cache["v"].dtype))
-    # The reference's position-aware mask; for a full-attention block it
-    # is the prefix of min(lengths[0] + 1, T) slots, before and after the
-    # ring wraps, so the kernel takes its count.
-    pos = cache_slot_positions(pos0, t_cache)                   # [T]
-    n_valid = ((pos >= 0) & (pos <= pos0)).sum()
-    out = decode_attention(q, kc.to(dtype), vc.to(dtype),
-                           n_valid.expand(x.shape[0]), dtype=dtype,
+    # The reference's position-aware mask as a ring run.  For a full block
+    # it is the prefix of min(lengths[0] + 1, T) slots, before and after
+    # the ring wraps (once all T are valid, any start will do), so only a
+    # local block passes its start.
+    b = x.shape[0]
+    n, start = decode_run(pos0, t_cache, cfg.local_window if local else 0)
+    out = decode_attention(q, kc.to(dtype), vc.to(dtype), n.expand(b),
+                           start.expand(b) if local else None, dtype=dtype,
                            decode_attention=kernels.get("decode_attention"))
     return _out_and_mlp(p, x, out, cfg, dtype), {"k": kc, "v": vc}
 

@@ -1,10 +1,10 @@
 """The LM of the port: schema-driven parameters, forward / prefill / decode.
 
 A :class:`~repro_torch.models.config.ModelConfig` picks a mixer per layer
-from its block pattern.  The port runs full attention (``attn``, the
-dense family) and the xLSTM family (``mlstm`` / ``slstm``) so far, on
-token inputs; any other block kind or a modality frontend raises
-``NotImplementedError`` naming it.
+from its block pattern: full or local attention (``attn`` /
+``local_attn``), the RG-LRU recurrence (``rglru``) or the xLSTM family
+(``mlstm`` / ``slstm``), on token inputs.  A modality frontend or a
+mixture-of-experts layer raises ``NotImplementedError`` naming it.
 
 Parameters live in :class:`Model`, an ``nn.Module`` whose parameter names
 mirror the JAX package's tree (``embed``, ``final_ln``, ``unembed``, and
@@ -20,9 +20,9 @@ and :func:`cache_from_reference` / :func:`cache_to_reference` carry the
 JAX package's parameters and caches across as numpy trees.
 
 The step functions take keyword arguments naming another implementation
-of a kernel's function (``mlstm_scan``, ``flash_attention``,
-``decode_attention``); by default each block calls the kernel's dispatch
-in :mod:`repro_torch.kernels.ops`.
+of a kernel's function (``mlstm_scan``, ``rglru_scan``,
+``flash_attention``, ``decode_attention``); by default each block calls
+the kernel's dispatch in :mod:`repro_torch.kernels.ops`.
 """
 
 from __future__ import annotations
@@ -34,30 +34,38 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve
-from repro_torch.models import layers, xlstm
+from repro_torch.models import layers, rglru, xlstm
 from repro_torch.models.config import DTYPES, ModelConfig
 from repro_torch.models.layers import PSpec, ein, rms_norm
 
 BLOCK_SCHEMAS = {
     "attn": partial(layers.attn_schema, local=False),
+    "local_attn": partial(layers.attn_schema, local=True),
+    "rglru": rglru.rglru_schema,
     "mlstm": xlstm.mlstm_schema,
     "slstm": xlstm.slstm_schema,
 }
 
 BLOCK_APPLY = {
     "attn": partial(layers.attn_block_apply, local=False),
+    "local_attn": partial(layers.attn_block_apply, local=True),
+    "rglru": rglru.rglru_block_apply,
     "mlstm": xlstm.mlstm_block_apply,
     "slstm": xlstm.slstm_block_apply,
 }
 
 BLOCK_PREFILL = {
     "attn": partial(layers.attn_block_prefill, local=False),
+    "local_attn": partial(layers.attn_block_prefill, local=True),
+    "rglru": rglru.rglru_block_prefill,
     "mlstm": xlstm.mlstm_block_prefill,
     "slstm": xlstm.slstm_block_prefill,
 }
 
 BLOCK_DECODE = {
     "attn": partial(layers.attn_block_decode, local=False),
+    "local_attn": partial(layers.attn_block_decode, local=True),
+    "rglru": rglru.rglru_block_decode,
     "mlstm": xlstm.mlstm_block_decode,
     "slstm": xlstm.slstm_block_decode,
 }
@@ -65,22 +73,19 @@ BLOCK_DECODE = {
 # kind -> (cfg, batch, t_cache) -> the layer's cache schema.
 CACHE_SCHEMAS = {
     "attn": lambda cfg, b, t: layers.attn_cache_schema(cfg, b, t, False),
+    "local_attn": lambda cfg, b, t: layers.attn_cache_schema(cfg, b, t,
+                                                             True),
+    "rglru": lambda cfg, b, t: rglru.rglru_cache_schema(cfg, b),
     "mlstm": lambda cfg, b, t: xlstm.mlstm_cache_schema(cfg, b),
     "slstm": lambda cfg, b, t: xlstm.slstm_cache_schema(cfg, b),
 }
 
-# Block kinds of the JAX package that the port does not run yet.
-_LATER_BLOCKS = ("local_attn", "rglru")
 # The kernels a caller may replace by name (see the module docstring).
-KERNELS = ("mlstm_scan", "flash_attention", "decode_attention")
+KERNELS = ("mlstm_scan", "rglru_scan", "flash_attention", "decode_attention")
 
 
 def _check_config(cfg: ModelConfig) -> None:
     for kind in cfg.blocks():
-        if kind in _LATER_BLOCKS:
-            raise NotImplementedError(
-                f"block kind {kind!r} ({cfg.name}) is not ported to "
-                f"repro_torch yet (ported: {sorted(BLOCK_SCHEMAS)})")
         if kind not in BLOCK_SCHEMAS:
             raise KeyError(kind)
     if cfg.frontend != "none":

@@ -44,6 +44,10 @@ def test_port_files_exist():
                  "src/repro_torch/kernels/decode_attention.py",
                  "src/repro_torch/kernels/csrc/flash_attention.cu",
                  "src/repro_torch/kernels/csrc/decode_attention.cu",
+                 "src/repro_torch/configs/recurrentgemma_2b.py",
+                 "src/repro_torch/models/rglru.py",
+                 "src/repro_torch/kernels/rglru_scan.py",
+                 "src/repro_torch/kernels/csrc/rglru_scan.cu",
                  "chip_smoke.py"):
         assert want in names
 
@@ -83,6 +87,16 @@ def test_port_imports_with_jax_and_repro_blocked():
             "p = lm.init_params(cfg, 0, device='cpu')\n"
             "logits, cache = lm.prefill(p, cfg, {'tokens': torch.ones("
             "(2, 5), dtype=torch.long)}, lm.init_cache(cfg, 2, 8, 'cpu'))\n"
+            "assert logits.shape == (2, 1, cfg.vocab)\n"
+            "assert bool(torch.isfinite(logits).all())\n"
+            "import repro_torch.kernels.rglru_scan, repro_torch.models.rglru\n"
+            "import repro_torch.configs.recurrentgemma_2b\n"
+            "cfg = registry.get_tiny('recurrentgemma-2b')\n"
+            "p = lm.init_params(cfg, 0, device='cpu')\n"
+            "logits, cache = lm.prefill(p, cfg, {'tokens': torch.ones("
+            "(2, 5), dtype=torch.long)}, lm.init_cache(cfg, 2, 8, 'cpu'))\n"
+            "logits, cache, _ = lm.decode_step(p, cfg, torch.ones("
+            "(2, 1), dtype=torch.long), torch.full((2,), 5), cache)\n"
             "assert logits.shape == (2, 1, cfg.vocab)\n"
             "assert bool(torch.isfinite(logits).all())\n"
             "assert not any(m.split('.')[0] in ('jax', 'repro') "

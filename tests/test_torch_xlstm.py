@@ -188,12 +188,14 @@ def test_entry_points_need_a_card_unless_told_the_cpu(monkeypatch):
 
 
 def test_registry_raises_for_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="recurrentgemma_2b"):
-        treg.get("recurrentgemma-2b")
+    for arch in ("phi35-moe-42b", "gemma-7b"):
+        with pytest.raises(NotImplementedError,
+                           match=arch.replace("-", "_")):
+            treg.get(arch)
     with pytest.raises(KeyError):
         treg.get("no-such-arch")
     assert treg.ALIASES == jreg.ALIASES
-    rglru = dataclasses.replace(treg.get_tiny("xlstm-125m"),
-                                block_pattern=("mlstm", "rglru"))
-    with pytest.raises(NotImplementedError, match="rglru"):
-        tlm.build_schema(rglru)
+    vision = dataclasses.replace(treg.get_tiny("xlstm-125m"),
+                                 frontend="vision_stub")
+    with pytest.raises(NotImplementedError, match="vision_stub"):
+        tlm.build_schema(vision)

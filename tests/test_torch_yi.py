@@ -327,13 +327,14 @@ def test_explicit_plain_kernels_are_the_cpu_path():
 
 
 def test_what_is_not_ported_raises():
-    local = dataclasses.replace(treg.get_tiny("yi-6b"),
-                                block_pattern=("local_attn",))
-    with pytest.raises(NotImplementedError, match="local_attn"):
-        tlm.build_schema(local)
     cfg = treg.get_tiny("yi-6b")
-    with pytest.raises(NotImplementedError, match="local attention"):
-        tlayers.attn_block_apply({}, None, cfg, local=True, positions=None)
+    for frontend in ("vision_stub", "audio_stub"):
+        with pytest.raises(NotImplementedError, match=frontend):
+            tlm.build_schema(dataclasses.replace(cfg, frontend=frontend))
+    with pytest.raises(NotImplementedError, match="gemma_7b"):
+        treg.get("gemma-7b")
     moe = dataclasses.replace(cfg, n_experts=4, top_k=2)
+    with pytest.raises(NotImplementedError, match="mixture-of-experts"):
+        tlayers.attn_schema(moe, local=True)
     with pytest.raises(NotImplementedError, match="mixture-of-experts"):
         tlm.build_schema(moe)
