@@ -73,7 +73,43 @@ Phases, each of which fails the script (non-zero exit, no result line):
     mean prompt's prefill, with the ``rglru_scan``, ``flash_attention``
     and ``decode_attention`` counters set to 0 just before and read just
     after.
-14. Print the kernel table (JSON), the card and, last, the device line.
+14. Hold ``flash_attention``'s log-sum-exp rows (the training forward's
+    second output) and ``flash_attention_bwd`` against their plain
+    versions on the card: f32 and bf16, head dims 32, 64, 128 and 256,
+    (H, K) of (4, 4), (32, 4) and (10, 1), S and T of 1/1, 77/300,
+    256/256 and 300/77, causal or not, window 0 or 64; the rows within
+    1e-4 (+inf where no key is visible), the forward without them
+    unchanged bit for bit, dq, dk and dv within the JAX package's bar
+    (``tests/test_kernels_bwd.py``: 5e-5 f32, 5e-2 bf16).  At the
+    recurrentgemma-2b and yi-6b training shapes (B=1, S=T=4096, bf16) the
+    forward's output (TOL), its rows (1e-4) and dq, dk and dv (5e-2)
+    against the plain versions element by element; one backward call
+    timed beside its bound, the plain version, PyTorch's fused
+    attention's backward and the profiler's kernel time.
+15. Hold the ``rglru_scan`` backward (the kernel over reversed inputs)
+    against the plain reverse loop, bit for bit in f32 (da, dx, dh0):
+    with and without h0, S in {1, 7, 4096}, R in {2560, 100}; time it at
+    the training shape.
+16. One loss-and-grad at recurrentgemma-2b's full widths cut to 3 layers,
+    one [1, 4096] microbatch, kernel path against plain path: the loss
+    within 0.5 %, each block kind's gradients within 3 % of their largest
+    magnitude.
+17. Train recurrentgemma-2b at its full config through
+    ``repro_torch.launch.train.main`` (3 steps of 2 x 4096 tokens in 2
+    microbatches), with the ``flash_attention``, ``flash_attention_bwd``
+    and ``rglru_scan`` counters set to 0 just before and read just after;
+    each must be 3 x its launches per step (32, 16 and 108).  Finite
+    losses and grad norms; the step time, tokens/s, MFU and peak memory.
+18. The trainer's final checkpoint (31.9 GB of params, m and v, in a
+    temporary directory removed at the end) restored into a fresh
+    ``Trainer``: every leaf equal bit for bit, ``latest()`` the step; the
+    seconds to write (the trainer's own ``ckpt_s``) and to read.
+19. One more step of the trainer's step function under ``torch.profiler``:
+    its card time split by the port's ``repro_torch.*`` ranges into
+    forward, recompute, attention backward, scan backward, the rest of
+    the backward and the optimizer; against the wall time of one more
+    step, the device idle share.
+20. Print the kernel table (JSON), the card and, last, the device line.
 
 It exits non-zero when no CUDA device is present, and when the port's
 package is not next to it.
@@ -133,6 +169,27 @@ SERVE_DURATION_S = 600.0
 MODEL_LOGITS_TOL = 0.03
 ATTN_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 RGLRU_TOL = {"float32": 0.0, "bfloat16": 5 * ATTN_TOL["bfloat16"]}
+
+# The training path: recurrentgemma-2b at its full config, 3 steps of a
+# global batch of 2 x 4096 tokens in 2 microbatches (each [1, 4096], so
+# the 2048-token window masks half of every long row), f32 parameters and
+# AdamW moments, bf16 compute.  flash_attention_bwd is held to the JAX
+# package's bar for it (tests/test_kernels_bwd.py: 5e-5 f32, 5e-2 bf16,
+# absolute and relative), the scan's backward to its plain version bit for
+# bit in f32; one full-width step's loss, kernel path against plain path,
+# to 0.5 % and each block kind's gradients to 3 % of their largest
+# magnitude (the bf16 bar the models' logits are held to).
+TRAIN_SEQ = 4096
+TRAIN_BATCH = 2
+TRAIN_MICROBATCHES = 2
+TRAIN_STEPS = 3
+TRAIN_ARGS = ["--arch", "recurrentgemma-2b", "--steps", str(TRAIN_STEPS),
+              "--global-batch", str(TRAIN_BATCH), "--seq-len",
+              str(TRAIN_SEQ), "--microbatches", str(TRAIN_MICROBATCHES),
+              "--ckpt-every", "1000"]
+FLASH_BWD_TOL = {"float32": 5e-5, "bfloat16": 5e-2}
+TRAIN_LOSS_RTOL = 0.005
+TRAIN_GRAD_TOL = 0.03
 
 # Fig1 calibration (benchmarks/paper_figs.py): 4 big + 4 little cores, CS
 # 3 us, non-CS 1 us, inter-epoch 5 us, CS ratio 3.75, non-CS ratio 1.8.
@@ -200,16 +257,18 @@ def state_digest(st) -> str:
 
 
 def instantiation(line: str) -> str:
-    """The template arguments of the kernel that ptxas's "Compiling entry
-    function" line names, readable: (f32, 256) for ``...IfLi256EE...``."""
+    """The kernel and template arguments that ptxas's "Compiling entry
+    function" line names, readable: ``dq(f32, 256, 64, 32)`` for
+    ``...9dq_kernelIfLi256ELi64ELi32EE...``."""
     import re
-    m = re.search(r"_kernelI(.*?)EEv", line)
+    m = re.search(r"(?<=[0-9])([a-z_]+)_kernelI(.*?)EEv", line)
     if not m:
         return ""
-    args = m.group(1).replace("13__nv_bfloat16", "bf16,").replace(
+    args = m.group(2).replace("13__nv_bfloat16", "bf16,").replace(
         "Li", "").replace("E", ",")
     args = re.sub(r"^f", "f32,", args)
-    return "(" + ", ".join(a for a in args.split(",") if a) + ")"
+    return m.group(1) + "(" + ", ".join(a for a in args.split(",") if a) \
+        + ")"
 
 
 def card_line() -> str:
@@ -1023,6 +1082,41 @@ def timed_rglru_layer(rglru, layers, ops, lp, x, cfg, cache, spent, *,
         {"ln2": lp["ln2"], "mlp": pc["mlp"]}, x + y, cfg))
 
 
+def card_events(events, device_type) -> list:
+    """The kernels and copies on the card in a profile's events.  The GPU
+    spans of user ranges (the profiler's ``ProfilerStep``, the port's
+    ``repro_torch.*``) cover kernels already counted and are left out."""
+    return [e for e in events if e.device_type == device_type.CUDA
+            and not e.is_user_annotation]
+
+
+def card_us(events, device_type) -> float:
+    """Microseconds of kernels and copies on the card in a profile's
+    events (:func:`card_events`)."""
+    return sum(e.time_range.elapsed_us()
+               for e in card_events(events, device_type))
+
+
+def profiled(fn, n):
+    """torch.profiler's events of ``n`` calls of ``fn`` and a
+    synchronisation, after as many in a warm-up cycle that the profiler
+    traces and throws away: without it, the kernels of the first calls
+    after the profiler started could be missing from the trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    box = {}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: box.update(events=p.events())) \
+            as prof:
+        for _ in range(2):
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return box["events"]
+
+
 def device_busy(fn, n) -> tuple:
     """(wall ms, device ms, idle share) of one call of ``fn``: the card's
     kernel and copy time from ``torch.profiler`` over ``n`` calls (one
@@ -1030,16 +1124,7 @@ def device_busy(fn, n) -> tuple:
     more calls with the profiler off."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    busy = sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / 1e3 / n
+    busy = card_us(profiled(fn, n), DeviceType) / 1e3 / n
     t0 = time.perf_counter()
     for _ in range(n):
         fn()
@@ -1347,6 +1432,602 @@ def phase_rg_model(rs, fa, da):
              decode_attention=da.decode_attention_ref), time_layer)
 
 
+# ---------------------------------------------------------------------------
+# Training: flash_attention's LSE rows, flash_attention_bwd, the scan's
+# backward, one full-width step, recurrentgemma-2b trained at full config
+# and its checkpoint
+# ---------------------------------------------------------------------------
+
+def bwd_tol(dtype) -> float:
+    return FLASH_BWD_TOL[str(dtype).replace("torch.", "")]
+
+
+def visible_pairs(s, t, causal, window) -> int:
+    """(i, j) pairs the attention mask lets through, this run's shape."""
+    if not causal:
+        return s * t
+    return sum(max(0, min(i, t - 1) - (max(0, i - window + 1) if window
+                                       else 0) + 1) for i in range(s))
+
+
+def flash_bwd_bound(b, h, kh, s, t, dh, esize, causal, window) -> tuple:
+    """Least time of one backward call: q, out, do, dq and k, v, dk, dv
+    once in their type, lse and delta once in f32; 5 products of 2 dh
+    operations over every visible pair on the bf16 tensor cores."""
+    n_bytes = 4 * b * h * s * dh * esize + 4 * b * kh * t * dh * esize \
+        + 2 * b * h * s * 4
+    flops = 5 * 2 * dh * b * h * visible_pairs(s, t, causal, window)
+    return bound(n_bytes, flops) + (n_bytes, flops)
+
+
+def lse_close(lse, want) -> bool:
+    """The log-sum-exp rows against the plain version's: within 1e-4
+    where a key is visible, +inf where none is."""
+    import torch
+    fin = torch.isfinite(want)
+    return bool(torch.equal(torch.isfinite(lse), fin)) and bool(
+        (lse[~fin] > 0).all()) and bool(torch.allclose(
+            lse[fin], want[fin], atol=1e-4, rtol=1e-5))
+
+
+def grads_close(got, want, tol) -> bool:
+    """(dq, dk, dv) against the plain version's, element by element."""
+    import torch
+    return all(a.dtype == w.dtype and a.shape == w.shape
+               and bool(torch.isfinite(a).all())
+               and torch.allclose(a.float(), w.float(), atol=tol, rtol=tol)
+               for a, w in zip(got, want))
+
+
+def flash_bwd_case(fa, fb, gen, b, h, kh, s, t, dh, dtype, causal,
+                   window) -> tuple:
+    """The forward with its LSE rows and the backward against their plain
+    versions on one case; -> (lse ok, out unchanged, max abs err of dq,
+    dk, dv, bwd ok)."""
+    import torch
+    f = lambda *shape: torch.randn(*shape, generator=gen, device="cuda") \
+        .to(dtype)
+    q, k, v, do = f(b, h, s, dh), f(b, kh, t, dh), f(b, kh, t, dh), \
+        f(b, h, s, dh)
+    n0, m0 = fa.flash_attention.launches, fb.flash_attention_bwd.launches
+    out, lse = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                  return_lse=True)
+    plain_out = fa.flash_attention(q, k, v, causal=causal, window=window)
+    got = fb.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                                 window=window)
+    torch.cuda.synchronize()
+    lse_ok = lse_close(lse, fa.flash_attention_lse_ref(
+        q, k, causal=causal, window=window))
+    same = bool(torch.equal(out, plain_out))
+    want = fb.flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal,
+                                      window=window)
+    tol = bwd_tol(dtype)
+    err = max(float((a.float() - w.float()).abs().max()) for a, w in
+              zip(got, want))
+    ok = grads_close(got, want, tol) \
+        and fa.flash_attention.launches == n0 + 2 \
+        and fb.flash_attention_bwd.launches == m0 + 1
+    return lse_ok, same, err, ok
+
+
+def library_attention_bwd(q, k, v, do, causal, window):
+    """-> fn: the backward alone of PyTorch's fused attention on the same
+    inputs (contiguous copies), with an explicit boolean mask for a
+    window: the yardstick timed beside the kernel (``library_ms``); the
+    port never calls it."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.ref import attention_mask
+    qs, ks, vs = (x.detach().contiguous().requires_grad_() for x in (q, k, v))
+    if causal and window:
+        mask = attention_mask(q.shape[2], k.shape[2], True, window, "cuda")
+        out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                             enable_gqa=True)
+    else:
+        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
+                                             enable_gqa=True)
+    dos = do.contiguous()
+    return lambda: torch.autograd.grad(out, (qs, ks, vs), dos,
+                                       retain_graph=True)
+
+
+def forward_with_lse_timing(fa, q, k, v, window) -> dict:
+    """The training forward (with its LSE rows) at one causal shape,
+    timed against its bound (q, out, k, v once in their type, lse in f32;
+    2 products of 2 dh operations over every visible pair), the plain
+    version and PyTorch's fused attention."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.ref import attention_mask
+    b, h, s, dh = q.shape
+    kh = k.shape[1]
+    ms, _ = median_ms(lambda: fa.flash_attention(
+        q, k, v, causal=True, window=window, return_lse=True), reps=3)
+    plain = lambda: (fa.flash_attention_ref(q, k, v, causal=True,
+                                            window=window),
+                     fa.flash_attention_lse_ref(q, k, causal=True,
+                                                window=window))
+    plain()                                              # warm: allocations
+    plain_ms = cuda_ms(plain)
+    qc, kc, vc = (x.contiguous() for x in (q, k, v))
+    mask = attention_mask(s, s, True, window, "cuda") if window else None
+    lib_ms, _ = median_ms(lambda: F.scaled_dot_product_attention(
+        qc, kc, vc, attn_mask=mask, is_causal=mask is None, enable_gqa=True),
+        reps=3)
+    esize = q.element_size()
+    n_bytes = 2 * b * h * s * dh * esize + 2 * b * kh * s * dh * esize \
+        + b * h * s * 4
+    flops = 2 * 2 * dh * b * h * visible_pairs(s, s, True, window)
+    bnd, by = bound(n_bytes, flops)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bnd, "bound_by": by}
+
+
+def flash_bwd_timing(fa, fb, gen, name, b, h, kh, s, dh, window) -> dict:
+    """One causal training shape in bf16, in the model's layout
+    (transposed views): the forward's output and LSE rows and the
+    backward's dq, dk and dv against the plain versions element by
+    element (ATTN_TOL, 1e-4, FLASH_BWD_TOL), then the backward timed
+    against its bound, the plain version and PyTorch's fused attention's
+    backward."""
+    import torch
+    f = lambda *shape: torch.randn(*shape, generator=gen, device="cuda") \
+        .to(torch.bfloat16)
+    q, k, v, do = (x.transpose(1, 2) for x in (
+        f(b, s, h, dh), f(b, s, kh, dh), f(b, s, kh, dh), f(b, s, h, dh)))
+    out, lse = fa.flash_attention(q, k, v, causal=True, window=window,
+                                  return_lse=True)
+    torch.cuda.synchronize()
+    want_out = fa.flash_attention_ref(q, k, v, causal=True, window=window)
+    tol = attn_tol(torch.bfloat16)
+    out_err = float((out.float() - want_out.float()).abs().max())
+    out_ok = out.dtype == want_out.dtype and bool(torch.allclose(
+        out.float(), want_out.float(), atol=tol, rtol=tol))
+    del want_out
+    lse_ok = lse_close(lse, fa.flash_attention_lse_ref(q, k, causal=True,
+                                                       window=window))
+    fwd = forward_with_lse_timing(fa, q, k, v, window)
+    run = lambda: fb.flash_attention_bwd(q, k, v, out, lse, do, causal=True,
+                                         window=window)
+    kernel_ms, times = median_ms(run, reps=3)
+    _, dev_ms, _ = device_busy(run, 3)
+    got = run()
+    res = {}
+    fb.flash_attention_bwd_ref(q, k, v, out, lse, do, causal=True,
+                               window=window)             # warm: allocations
+    plain_ms = cuda_ms(lambda: res.update(want=fb.flash_attention_bwd_ref(
+        q, k, v, out, lse, do, causal=True, window=window)))
+    err = max(float((a.float() - w.float()).abs().max())
+              for a, w in zip(got, res["want"]))
+    big = max(float(w.float().abs().max()) for w in res["want"])
+    bwd_ok = grads_close(got, res["want"], bwd_tol(torch.bfloat16))
+    del res
+    lib_ms, _ = median_ms(library_attention_bwd(q, k, v, do, True, window),
+                          reps=3)
+    bnd, by, n_bytes, flops = flash_bwd_bound(b, h, kh, s, s, dh, 2, True,
+                                              window)
+    print(f"flash_attention_bwd {name} B={b} H={h} K={kh} S=T={s} dh={dh} "
+          f"window={window} bf16 causal: kernel {kernel_ms:.3f} ms/call (of "
+          f"{[round(x, 3) for x in times]}; on the card {dev_ms:.3f}; 3 "
+          f"launches: delta, dq, dk/dv), plain {plain_ms:.2f} ms, library "
+          f"{lib_ms:.3f} ms (SDPA backward), bound {bnd:.4f} ms ({by}; "
+          f"{n_bytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP), max abs err "
+          f"{err:.3g} (largest gradient {big:.3g}); dq, dk, dv within "
+          f"{bwd_tol(torch.bfloat16)} element by element: {bwd_ok}",
+          flush=True)
+    print(f"flash_attention with LSE {name} training shape: kernel "
+          f"{fwd['ms']:.3f} ms/launch, plain {fwd['plain_ms']:.2f} ms, "
+          f"library {fwd['library_ms']:.3f} ms (SDPA forward), bound "
+          f"{fwd['bound_ms']:.4f} ms ({fwd['bound_by']}); output within "
+          f"{tol} of the plain version: {out_ok} (max abs err "
+          f"{out_err:.3g}); LSE rows within 1e-4: {lse_ok}", flush=True)
+    if not (bwd_ok and out_ok and lse_ok):
+        raise AssertionError(f"flash_attention (with LSE) or "
+                             f"flash_attention_bwd != plain at {name}")
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "max_abs_err": err,
+            "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms,
+            "card_ms": dev_ms, "forward": fwd}
+
+
+def phase_flash_bwd(fa, fb) -> dict:
+    """flash_attention's LSE rows and flash_attention_bwd against their
+    plain versions on the card over the sweep (and the serving call
+    without LSE unchanged), then the recurrentgemma-2b and yi-6b training
+    shapes timed.  -> the recurrentgemma-2b shape's numbers (the kernel
+    table's)."""
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    n_cases = n_bad = n_lse_bad = n_changed = 0
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for dh in (32, 64, 128, 256):
+            for h, kh in ((4, 4), (32, 4), (10, 1)):
+                for s, t in ((1, 1), (77, 300), (256, 256), (300, 77)):
+                    for causal in (True, False):
+                        for window in (0, 64):
+                            lse_ok, same, err, ok = flash_bwd_case(
+                                fa, fb, gen, 2, h, kh, s, t, dh, dtype,
+                                causal, window)
+                            n_cases += 1
+                            n_bad += not ok
+                            n_lse_bad += not lse_ok
+                            n_changed += not same
+                            if dtype == torch.float32:
+                                worst = max(worst, err)
+                            if not (ok and lse_ok and same):
+                                print(f"flash_attention_bwd {dtype} dh={dh} "
+                                      f"H={h} K={kh} S={s} T={t} causal="
+                                      f"{causal} window={window}: max abs "
+                                      f"err {err:.3g}, lse ok {lse_ok}, "
+                                      f"forward unchanged {same}: FAILED",
+                                      flush=True)
+    print(f"flash_attention LSE rows: {n_cases - n_lse_bad}/{n_cases} cases "
+          f"within 1e-4 of the plain version (+inf where no key is "
+          f"visible); forward without LSE bit-equal to it in "
+          f"{n_cases - n_changed}/{n_cases}", flush=True)
+    print(f"flash_attention_bwd sweep: {n_cases - n_bad}/{n_cases} cases "
+          f"within tolerance (f32 {FLASH_BWD_TOL['float32']}, bf16 "
+          f"{FLASH_BWD_TOL['bfloat16']}; dh 32/64/128/256 x (H, K) "
+          f"(4, 4)/(32, 4)/(10, 1) x S,T 1/1 77/300 256/256 300/77 x "
+          f"causal x window 0/64); worst f32 error {worst:.3g}", flush=True)
+    if n_bad or n_lse_bad or n_changed:
+        raise AssertionError(f"flash_attention_bwd: {n_bad} backward, "
+                             f"{n_lse_bad} LSE, {n_changed} forward cases "
+                             f"failed")
+    rg = flash_bwd_timing(fa, fb, gen, RG, 1, 10, 1, TRAIN_SEQ, 256, 2048)
+    flash_bwd_timing(fa, fb, gen, YI, 1, 32, 4, TRAIN_SEQ, 128, 0)
+    torch.cuda.empty_cache()
+    return rg
+
+
+def phase_rglru_bwd(rs) -> dict:
+    """The rglru_scan backward (the kernel over reversed inputs) against
+    the plain reverse loop on the card, bit for bit in f32 (da, dx,
+    dh0), then timed at the training shape."""
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    n_bad = n_cases = 0
+    for s in (1, 7, TRAIN_SEQ):
+        for r in (2560, 100):
+            for h0 in (False, True):
+                a, x, c = rglru_inputs(gen, 1, s, r, torch.float32, h0)
+                h = rs.rglru_scan(a, x, c)
+                dh = torch.randn(1, s, r, generator=gen, device="cuda")
+                n0 = rs.rglru_scan.launches
+                got = rs.rglru_scan_bwd(a, h, dh, c)
+                torch.cuda.synchronize()
+                want = rs.rglru_scan_bwd_ref(a, h, dh, c)
+                ok = rs.rglru_scan.launches == n0 + 1 and all(
+                    (g is None and w is None) or (
+                        g is not None and w is not None
+                        and g.dtype == w.dtype and torch.equal(g, w))
+                    for g, w in zip(got, want))
+                n_cases += 1
+                n_bad += not ok
+                print(f"rglru_scan backward f32 S={s} R={r} h0={h0}: "
+                      f"{'bit-equal' if ok else 'DIFFERS'} (da, dx"
+                      f"{', dh0' if h0 else ''})", flush=True)
+    if n_bad:
+        raise AssertionError(f"rglru_scan backward != plain in {n_bad} "
+                             f"cases")
+    a, x, _ = rglru_inputs(gen, 1, TRAIN_SEQ, 2560, torch.float32, False)
+    h = rs.rglru_scan(a, x)
+    dh = torch.randn(1, TRAIN_SEQ, 2560, generator=gen, device="cuda")
+    ms, _ = median_ms(lambda: rs.rglru_scan_bwd(a, h, dh), reps=20)
+    _, dev_ms, _ = device_busy(lambda: rs.rglru_scan_bwd(a, h, dh), 20)
+    plain_ms = cuda_ms(lambda: rs.rglru_scan_bwd_ref(a, h, dh))
+    n_bytes = 5 * TRAIN_SEQ * 2560 * 4
+    print(f"rglru_scan backward sweep: {n_cases}/{n_cases} bit-equal; at "
+          f"B=1 S={TRAIN_SEQ} R=2560 f32: {ms:.4f} ms a call (the flips, "
+          f"the shift, one kernel launch and the product; on the card "
+          f"{dev_ms:.4f}), plain {plain_ms:.2f} ms, bound "
+          f"{n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes: a, h, dh read "
+          f"and da, dx written once)", flush=True)
+    return {"bwd_ms": ms, "bwd_plain_ms": plain_ms}
+
+
+def train_config(n_layers=None):
+    import dataclasses
+    from repro_torch.configs import registry
+    cfg = registry.get(RG)[0]
+    return cfg if n_layers is None else dataclasses.replace(
+        cfg, n_layers=n_layers)
+
+
+def phase_train_step_parity(fa, fb, rs) -> None:
+    """One loss-and-grad at full width, kernel path against plain path:
+    recurrentgemma-2b's widths cut to 3 layers (one RG-LRU pair and one
+    local attention block, the pattern once), one [1, 4096] microbatch,
+    the same parameters and batch; the plain path is autograd of the
+    plain versions.  The loss within 0.5 % relative, each block kind's
+    gradients within 3 % of their largest magnitude."""
+    import numpy as np
+    import torch
+    from repro_torch.data.pipeline import DataConfig, TokenDataset
+    from repro_torch.models import lm
+    cfg = train_config(3)
+    params = lm.init_params(cfg, 0, device="cuda", requires_grad=True)
+    batch = {k: torch.from_numpy(v).to("cuda", torch.long) for k, v in
+             TokenDataset(DataConfig(cfg.vocab, TRAIN_SEQ, 1, seed=3))
+             .batch(0).items()}
+    named = dict(params.named_parameters())
+    kinds = {name: ("embedding and final norm" if not name.startswith(
+        "blocks.") else cfg.blocks()[int(name.split(".")[1])])
+        for name in named}
+    losses, grads, times = {}, {}, {}
+    for path, kw in (("kernel", {}), ("plain", dict(
+            flash_attention=fa.flash_attention_ref,
+            rglru_scan=rs.rglru_scan_ref))):
+        counts = {f: f.launches for f in (fa.flash_attention,
+                                          fb.flash_attention_bwd,
+                                          rs.rglru_scan)}
+        for p in named.values():
+            p.grad = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = lm.loss_fn(params, cfg, batch, **kw)
+        loss.backward()
+        torch.cuda.synchronize()
+        times[path] = time.perf_counter() - t0
+        losses[path] = float(loss.detach())
+        grads[path] = {n: p.grad for n, p in named.items()}
+        print(f"train step parity, {path} path: loss {losses[path]:.6f}, "
+              f"loss and grad {times[path]:.2f} s; launches "
+              + ", ".join(f"{f.__name__} {f.launches - c}"
+                          for f, c in counts.items()), flush=True)
+        if path == "kernel" and (fb.flash_attention_bwd.launches
+                                 - counts[fb.flash_attention_bwd] != 1):
+            raise AssertionError("the kernel path did not run "
+                                 "flash_attention_bwd once")
+    for p in named.values():
+        p.grad = None
+    rel = abs(losses["kernel"] - losses["plain"]) / abs(losses["plain"])
+    ok = rel <= TRAIN_LOSS_RTOL and np.isfinite(losses["kernel"])
+    for kind in sorted(set(kinds.values())):
+        names = [n for n in named if kinds[n] == kind]
+        big = max(float(grads["plain"][n].abs().max()) for n in names)
+        err = max(float((grads["kernel"][n] - grads["plain"][n]).abs()
+                        .max()) for n in names)
+        good = err <= TRAIN_GRAD_TOL * big and all(
+            bool(torch.isfinite(grads["kernel"][n]).all()) for n in names)
+        ok = ok and good
+        print(f"  {kind} gradients ({len(names)} leaves): max abs diff "
+              f"{err:.4g} of largest {big:.4g} ({err / max(big, 1e-30):.3%};"
+              f" tolerance {TRAIN_GRAD_TOL:.0%}): "
+              f"{'ok' if good else 'FAILED'}", flush=True)
+    print(f"train step parity: loss kernel {losses['kernel']:.6f} vs plain "
+          f"{losses['plain']:.6f} ({rel:.4%}, tolerance "
+          f"{TRAIN_LOSS_RTOL:.1%}): {'ok' if ok else 'FAILED'}", flush=True)
+    if not ok:
+        raise AssertionError("train step: kernel path != plain path")
+    del params, grads, named
+    torch.cuda.empty_cache()
+
+
+TRAIN_COUNTERS = ("flash_attention", "flash_attention_bwd", "rglru_scan")
+
+
+def phase_train(fa, fb, rs, ckpt_dir) -> dict:
+    """recurrentgemma-2b at its full config trained through
+    ``repro_torch.launch.train.main`` for TRAIN_STEPS steps, the three
+    counters set to 0 just before and read just after; each must be
+    TRAIN_STEPS x its reckoned launches per step.  -> the run's output
+    and numbers."""
+    import shutil as sh
+    import numpy as np
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    cfg = train_config()
+    n = lm.n_params(cfg)
+    if n != RG_PARAMS:
+        raise AssertionError(f"{RG}: {n} parameters")
+    fns = {"flash_attention": fa.flash_attention,
+           "flash_attention_bwd": fb.flash_attention_bwd,
+           "rglru_scan": rs.rglru_scan}
+    print(f"train {RG}: checkpoints to {ckpt_dir}, disk "
+          f"{sh.disk_usage(ckpt_dir)}", flush=True)
+    import signal
+    handlers = {g: signal.getsignal(g) for g in (signal.SIGTERM,
+                                                 signal.SIGUSR1)}
+    try:
+        for f in fns.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        out = train.main(TRAIN_ARGS + ["--ckpt-dir", str(ckpt_dir)],
+                         device="cuda")
+        wall = time.perf_counter() - t0
+        launches = {k: f.launches for k, f in fns.items()}
+    finally:
+        for g, h in handlers.items():       # main() installed the trainer's
+            signal.signal(g, h)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_local = cfg.blocks().count("local_attn")
+    n_rglru = cfg.blocks().count("rglru")
+    mb = TRAIN_MICROBATCHES
+    per_step = {"flash_attention": n_local * mb * 2,
+                "flash_attention_bwd": n_local * mb,
+                "rglru_scan": n_rglru * mb * 2 + n_rglru * mb}
+    want = {k: TRAIN_STEPS * v for k, v in per_step.items()}
+    hist = out["history"]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    dts = [h["dt"] for h in hist]
+    step_s = float(np.mean(dts[1:])) if len(dts) > 1 else dts[0]
+    mfu = 6 * n * tokens / step_s / BF16_OPS_PER_S
+    finite = all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+                 for h in hist)
+    print(f"train {RG}: {n} parameters, {TRAIN_STEPS} steps of "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens in {mb} microbatches, "
+          f"{wall:.1f} s in main (init, steps, final save); step times "
+          f"{[round(d, 3) for d in dts]} s; steps 2-{TRAIN_STEPS}: "
+          f"{step_s:.3f} s a step, {tokens / step_s:.0f} tokens/s, MFU "
+          f"{mfu:.2%} (6 N tokens / step time / {BF16_OPS_PER_S:.3g}); "
+          f"losses {[round(h['loss'], 4) for h in hist]}, grad norms "
+          f"{[round(h['grad_norm'], 4) for h in hist]}; "
+          f"max_memory_allocated {peak:.2f} GiB", flush=True)
+    print(f"train {RG}: launches {launches}, reckoned {want} "
+          f"({n_local} local blocks x {mb} microbatches x (forward + "
+          f"recompute); {n_local} x {mb} backward calls; {n_rglru} RG-LRU "
+          f"blocks x {mb} x (2 forward + 1 backward), x {TRAIN_STEPS} "
+          f"steps)", flush=True)
+    if not finite or out["step"] != TRAIN_STEPS or launches != want:
+        raise AssertionError(f"training {RG} failed: step {out['step']}, "
+                             f"finite {finite}, launches {launches}")
+    return {"out": out, "launches": launches, "step_s": step_s, "mfu": mfu,
+            "peak_gib": peak,
+            "save_s": [h["ckpt_s"] for h in hist if "ckpt_s" in h]}
+
+
+def phase_checkpoint(out, ckpt_dir, save_s) -> None:
+    """The trainer's final save (params, m, v, count; ``save_s``: the
+    seconds of its saves) restored into a fresh Trainer: every leaf equal
+    bit for bit, ``latest()`` the step; the seconds to read."""
+    import torch
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import leaves
+    cfg = train_config()
+    state = {"params": out["params"].tree(), "opt": out["opt"]}
+    size = sum(x.numel() * x.element_size() for x in leaves(state))
+    torch.cuda.empty_cache()
+    fresh = Trainer(cfg, TrainerConfig(
+        total_steps=TRAIN_STEPS, ckpt_dir=str(ckpt_dir),
+        global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+        microbatches=TRAIN_MICROBATCHES), device="cuda")
+    latest = fresh.ckpt.latest()
+    t0 = time.perf_counter()
+    params, opt_state, step = fresh.init_or_restore()
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    got = fresh.state_tree(params, opt_state)
+    bad = [i for i, (a, b) in enumerate(zip(leaves(state), leaves(got)))
+           if a.dtype != b.dtype or not torch.equal(a, b)]
+    on_disk = sum(f.stat().st_size for f in
+                  (Path(ckpt_dir) / f"step_{TRAIN_STEPS}").iterdir())
+    print(f"checkpoint round trip: {len(leaves(state))} leaves, "
+          f"{size / 1e9:.2f} GB of params, m, v and count, {on_disk / 1e9:.2f}"
+          f" GB on disk; the trainer's save {[round(x, 1) for x in save_s]} "
+          f"s, init and restore into a fresh Trainer {read_s:.1f} s; "
+          f"latest() {latest}, step {step}; leaves differing: {len(bad)}",
+          flush=True)
+    del params, opt_state, got, fresh
+    torch.cuda.empty_cache()
+    if bad or latest != TRAIN_STEPS or step != TRAIN_STEPS:
+        raise AssertionError("checkpoint round trip failed")
+
+
+# The port's profiler ranges in a training step: the forward and the
+# optimizer (train/step.py), each block (models/lm.py) and the two
+# autograd Functions' backwards.
+STEP_RANGES = ("repro_torch.forward", "repro_torch.block",
+               "repro_torch.flash_attention_bwd", "repro_torch.rglru_scan_bwd",
+               "repro_torch.optimizer")
+
+
+def step_split(events, device_type) -> tuple:
+    """A profiled training step's card time (ms) split by the port's
+    ranges.  A kernel or copy belongs to the ranges that were open on the
+    host when it was launched: its launch is the runtime or driver call
+    with the same correlation id (the kernels that the port's libraries
+    launch through ctypes are linked to no PyTorch op, so this is the one
+    link all of them have).  The forward and the optimizer run on the
+    calling thread and the backward on autograd's, one after the other, so
+    the time of the launch decides.  A block range inside the forward
+    range is the forward's, outside it remat's recompute; the rest of the
+    forward range is the embedding, unembedding and loss; what no range
+    covers is the rest of the backward.  -> (split, card ms in all,
+    {range: count}, kernels in the attention backward's ranges, kernels
+    with no launch found)."""
+    names = ["forward (blocks)", "forward (embedding, unembedding, loss)",
+             "recompute", "attention backward", "scan backward", "optimizer"]
+    split = dict.fromkeys(names + ["rest of the backward"], 0.0)
+    count = dict.fromkeys(STEP_RANGES, 0)
+    ranges, launched = [], {}
+    for e in events:
+        if e.device_type != device_type.CPU:
+            continue
+        if e.name in count:
+            count[e.name] += 1
+            ranges.append((e.time_range.start, e.time_range.end, e.name))
+        elif e.name.startswith("cu"):               # cudaLaunchKernel, ...
+            launched[e.id] = e.time_range.start
+    attn_kernels = lost = 0
+    for e in card_events(events, device_type):
+        t = launched.get(e.id)
+        lost += t is None
+        open_ = set() if t is None else {
+            name for a, b, name in ranges if a <= t <= b}
+        if "repro_torch.flash_attention_bwd" in open_:
+            key = "attention backward"
+            attn_kernels += 1
+        elif "repro_torch.rglru_scan_bwd" in open_:
+            key = "scan backward"
+        elif "repro_torch.block" in open_:
+            key = "forward (blocks)" if "repro_torch.forward" in open_ \
+                else "recompute"
+        elif "repro_torch.forward" in open_:
+            key = "forward (embedding, unembedding, loss)"
+        elif "repro_torch.optimizer" in open_:
+            key = "optimizer"
+        else:
+            key = "rest of the backward"
+        split[key] += e.time_range.elapsed_us() / 1e3
+    return split, sum(split.values()), count, attn_kernels, lost
+
+
+def phase_train_profile(out) -> None:
+    """Where a training step's time goes: one step of the trainer's own
+    step function (``make_train_step``, as ``Trainer`` builds it) on the
+    trained state under ``torch.profiler`` (after one traced for warm-up),
+    its card time split by the port's ranges (``step_split``); the wall
+    time of one more step with the profiler off, and the device idle
+    share.  Runs after the checkpoint was checked."""
+    import torch
+    from torch.autograd import DeviceType
+    from repro_torch.data.pipeline import DataConfig, TokenDataset
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.train.step import make_train_step
+    cfg = train_config()
+    params, opt_state = out["params"], out["opt"]
+    step_fn = make_train_step(
+        cfg, AdamW(state_dtype=cfg.opt_state_dtype),
+        cosine_schedule(3e-3, 10, TRAIN_STEPS),
+        microbatches=TRAIN_MICROBATCHES)
+    data = TokenDataset(DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH))
+    box = {"step": out["step"]}
+
+    def one_step():
+        batch = {k: torch.from_numpy(v).to("cuda", torch.long)
+                 for k, v in data.batch(box["step"]).items()}
+        box["step"] = step_fn(params, opt_state, box["step"], batch)[2]
+        torch.cuda.synchronize()
+    split, busy, count, attn_kernels, lost = step_split(
+        profiled(one_step, 1), DeviceType)
+    t0 = time.perf_counter()
+    one_step()
+    wall = (time.perf_counter() - t0) * 1e3
+    n_local = cfg.blocks().count("local_attn")
+    n_rglru = cfg.blocks().count("rglru")
+    mb = TRAIN_MICROBATCHES
+    want = {"repro_torch.forward": mb, "repro_torch.block": 2 * mb * len(
+        cfg.blocks()), "repro_torch.flash_attention_bwd": mb * n_local,
+        "repro_torch.rglru_scan_bwd": mb * n_rglru,
+        "repro_torch.optimizer": 1}
+    print(f"train {RG} one step's card time by the port's profiler ranges "
+          f"({busy:.1f} ms in all): " + ", ".join(
+              f"{k} {v:.1f} ms ({v / busy:.1%})" for k, v in split.items())
+          + f"; ranges {count} (reckoned {want}); {attn_kernels} kernels "
+          f"in the attention backward's ranges; {lost} kernels and copies "
+          f"with no launch found", flush=True)
+    print(f"train {RG} one step: {wall:.1f} ms wall, {busy:.1f} ms of "
+          f"kernels and copies on the card (torch.profiler), device idle "
+          f"share {1 - busy / wall:.1%}; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    if count != want:
+        raise AssertionError("the step's profiler ranges are not as "
+                             "reckoned")
+
+
 def main() -> int:
     try:
         import torch
@@ -1362,6 +2043,7 @@ def main() -> int:
         from repro_torch.kernels import mlstm_scan as ms
         from repro_torch.kernels import decode_attention as da
         from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import flash_attention_bwd as fb
         from repro_torch.kernels import rglru_scan as rs
     except ImportError as e:
         print(f"chip_smoke: the port's package is missing ({e}); run from "
@@ -1408,6 +2090,30 @@ def main() -> int:
             with_decode=True)
         del params
         torch.cuda.empty_cache()
+        t0 = time.time()
+        flash_bwd = phase_flash_bwd(fa, fb)
+        phase_rglru_bwd(rs)
+        phase_train_step_parity(fa, fb, rs)
+        print(f"training kernel phases: {time.time() - t0:.1f} s", flush=True)
+        import shutil
+        import tempfile
+        ckpt_dir = tempfile.mkdtemp(prefix="repro_torch_ckpt_")
+        try:
+            t0 = time.time()
+            trained = phase_train(fa, fb, rs, ckpt_dir)
+            print(f"training phase: {time.time() - t0:.1f} s", flush=True)
+            t0 = time.time()
+            phase_checkpoint(trained["out"], ckpt_dir, trained["save_s"])
+            print(f"checkpoint phase: {time.time() - t0:.1f} s", flush=True)
+        finally:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+        t0 = time.time()
+        phase_train_profile(trained["out"])
+        print(f"training profile phase: {time.time() - t0:.1f} s",
+              flush=True)
+        train_launches = trained["launches"]
+        del trained
+        torch.cuda.empty_cache()
     except Exception:
         traceback.print_exc()
         return 1
@@ -1429,13 +2135,31 @@ def main() -> int:
         name="rglru_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/rglru_scan.cu",
         replaces="src/repro/kernels/rglru_scan.py:43",
-        launches=rg_launches["rglru_scan"], max_abs_err=rglru["max_abs_err"],
+        launches=rg_launches["rglru_scan"] + train_launches["rglru_scan"],
+        launches_by_path={
+            f"{RG} serve": rg_launches["rglru_scan"],
+            f"{RG} train (forward, recompute and backward)":
+                train_launches["rglru_scan"]},
+        max_abs_err=rglru["max_abs_err"],
         ms=rglru["ms"], plain_ms=rglru["plain_ms"],
         bound_ms=rglru["bound_ms"], bound_by=rglru["bound_by"],
-        library_ms=None)] + [dict(
+        library_ms=None), dict(
+        name="flash_attention_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/flash_attention_bwd.py:162",
+        launches=train_launches["flash_attention_bwd"],
+        max_abs_err=flash_bwd["max_abs_err"], ms=flash_bwd["ms"],
+        plain_ms=flash_bwd["plain_ms"], bound_ms=flash_bwd["bound_ms"],
+        bound_by=flash_bwd["bound_by"],
+        library_ms=flash_bwd["library_ms"])] + [dict(
         name=name, route="cuda",
         source=f"src/repro_torch/kernels/csrc/{name}.cu", replaces=where,
-        launches=yi_launches[name], max_abs_err=r["max_abs_err"],
+        launches=yi_launches[name],
+        launches_by_path={f"{YI} serve": yi_launches[name],
+                          f"{RG} serve": rg_launches[name],
+                          f"{RG} train (forward and recompute)":
+                              train_launches.get(name, 0)},
+        max_abs_err=r["max_abs_err"],
         ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
         bound_by=r["bound_by"], library_ms=r["library_ms"])
         for name, where, r in (
@@ -1443,6 +2167,10 @@ def main() -> int:
              flash),
             ("decode_attention", "src/repro/kernels/decode_attention.py:70",
              dec))]
+    for row in kernels:
+        if row["name"] == "flash_attention":
+            row["train_shape"] = dict(flash_bwd["forward"], launches=(
+                train_launches["flash_attention"]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -21,7 +21,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("simstep", "mlstm_scan", "flash_attention", "decode_attention",
-           "rglru_scan")
+           "rglru_scan", "flash_attention_bwd")
 # -fmad=false: no a*b+c contraction, so f32 results match the reference.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",

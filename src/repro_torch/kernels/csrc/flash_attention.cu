@@ -42,6 +42,13 @@
 // never weigh.  A row that no key may see gets zeros (the TPU kernel
 // returns a mean of masked values there, the plain version NaN).
 //
+// Training also asks for the softmax's log-sum-exp rows, lse_i = m_i +
+// log(l_i) in the scaled-score units, which the backward kernels
+// (flash_attention_bwd.cu) recompute the probabilities from.  The block
+// already holds m and l of its rows, so it writes them when `lse` is not
+// NULL ([B, H, S] f32, contiguous); a row that no key may see gets +inf,
+// so every probability and gradient of it is 0.  Serving passes NULL.
+//
 // Numerics: f32 scores and accumulation; the products accumulate with
 // explicit fmaf (the port builds every source with -fmad=false, which
 // only stops the compiler from contracting a separate multiply and add);
@@ -94,9 +101,9 @@ template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ o,
-                           int g, int S, int T_len, Strides sq, Strides sk,
-                           Strides sv, Strides so, float scale, int causal,
-                           int window) {
+                           float* __restrict__ lse, int g, int S, int T_len,
+                           Strides sq, Strides sk, Strides sv, Strides so,
+                           float scale, int causal, int window) {
   constexpr int LD = DH + 1;     // padded row stride of q and k tiles
   constexpr int LP = kBK + 1;    // row stride of the probabilities
   constexpr int CD = DH / kTX;   // output columns per thread
@@ -228,13 +235,17 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int c = 0; c < CD; ++c)
       ob[iq * so.s + tx + c * kTX] = from_f32<T>(acc[r][c] / den);
+    if (lse != nullptr && tx == 0) {
+      lse[(static_cast<long long>(bb) * gridDim.y + hh) * S + iq] =
+          l[r] > 0.0f ? m[r] + logf(l[r]) : __int_as_float(0x7f800000);
+    }
   }
 }
 
 template <typename T, int DH>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int KH, int S, int T_len, const long long* st, float scale,
-           int causal, int window, void* stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int H, int KH, int S, int T_len, const long long* st,
+           float scale, int causal, int window, void* stream) {
   const size_t smem = smem_bytes<DH>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_attention_kernel<T, DH>,
@@ -246,27 +257,28 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   flash_attention_kernel<T, DH>
       <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), static_cast<T*>(o), H / KH, S, T_len, sq,
-          sk, sv, so, scale, causal, window);
+          static_cast<const T*>(v), static_cast<T*>(o), lse, H / KH, S, T_len,
+          sq, sk, sv, so, scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int B,
-             int H, int KH, int S, int T_len, int dh, const long long* st,
-             float scale, int causal, int window, void* stream) {
+int dispatch(const void* q, const void* k, const void* v, void* o,
+             float* lse, int B, int H, int KH, int S, int T_len, int dh,
+             const long long* st, float scale, int causal, int window,
+             void* stream) {
   switch (dh) {
     case 32:
-      return launch<T, 32>(q, k, v, o, B, H, KH, S, T_len, st, scale, causal,
-                           window, stream);
+      return launch<T, 32>(q, k, v, o, lse, B, H, KH, S, T_len, st, scale,
+                           causal, window, stream);
     case 64:
-      return launch<T, 64>(q, k, v, o, B, H, KH, S, T_len, st, scale, causal,
-                           window, stream);
+      return launch<T, 64>(q, k, v, o, lse, B, H, KH, S, T_len, st, scale,
+                           causal, window, stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, B, H, KH, S, T_len, st, scale,
+      return launch<T, 128>(q, k, v, o, lse, B, H, KH, S, T_len, st, scale,
                             causal, window, stream);
     case 256:
-      return launch<T, 256>(q, k, v, o, B, H, KH, S, T_len, st, scale,
+      return launch<T, 256>(q, k, v, o, lse, B, H, KH, S, T_len, st, scale,
                             causal, window, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -281,20 +293,21 @@ extern "C" {
 // [B, KH, T, dh], H % KH == 0; f32 (bf16 = 0) or bf16 (bf16 = 1), all of
 // one type.  `strides` holds 12 element strides: (batch, head, row) of q,
 // k, v and o in that order; the head dim is contiguous.  dh is 32, 64, 128
-// or 256.  Returns the cudaError_t of the launch (0 = success).
+// or 256.  `lse` is NULL or a contiguous [B, H, S] f32 output of the
+// rows' log-sum-exp.  Returns the cudaError_t of the launch (0 = success).
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* o, int B, int H, int KH, int S, int T_len,
-                           int dh, const long long* strides, float scale,
-                           int causal, int window, int bf16, int device,
-                           void* stream) {
+                           void* o, float* lse, int B, int H, int KH, int S,
+                           int T_len, int dh, const long long* strides,
+                           float scale, int causal, int window, int bf16,
+                           int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (bf16) {
-    return dispatch<__nv_bfloat16>(q, k, v, o, B, H, KH, S, T_len, dh,
+    return dispatch<__nv_bfloat16>(q, k, v, o, lse, B, H, KH, S, T_len, dh,
                                    strides, scale, causal, window, stream);
   }
-  return dispatch<float>(q, k, v, o, B, H, KH, S, T_len, dh, strides, scale,
-                         causal, window, stream);
+  return dispatch<float>(q, k, v, o, lse, B, H, KH, S, T_len, dh, strides,
+                         scale, causal, window, stream);
 }
 
 const char* flash_attention_error_string(int code) {

@@ -11,7 +11,9 @@ semantics are the plain PyTorch version :func:`flash_attention_ref`
 ``S, T >= 1`` (ragged ones included), and raises on anything the kernel
 does not take; it never falls back.  On CPU tensors it runs
 :func:`flash_attention_ref`.  ``flash_attention.launches`` counts the
-kernel launches.
+kernel launches.  With ``return_lse=True`` it also returns the rows'
+log-sum-exp (the training forward's, which the backward kernels take);
+the CPU computes it with :func:`flash_attention_lse_ref`.
 """
 
 from __future__ import annotations
@@ -22,9 +24,11 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.kernels.ref import flash_attention_lse_ref, \
+    flash_attention_ref
 
-__all__ = ["flash_attention", "flash_attention_ref", "HEAD_DIMS"]
+__all__ = ["flash_attention", "flash_attention_ref", "flash_attention_lse_ref",
+           "HEAD_DIMS"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128, 256)       # the head dims the kernel is built for
@@ -34,7 +38,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     fn = lib.flash_attention_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float]
                        + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -68,17 +72,23 @@ def _check(q, k, v) -> None:
                          f"k {tuple(k.shape)}")
 
 
-def flash_attention(q, k, v, *, causal=True, window=0):
+def flash_attention(q, k, v, *, causal=True, window=0, return_lse=False):
     """q: [B,H,S,dh]; k,v: [B,K,T,dh] (GQA: H % K == 0) -> [B,H,S,dh] in
     q's dtype, laid out like q.  f32 or bf16; any strides with the head
-    dim contiguous (the model passes transposed views).
+    dim contiguous (the model passes transposed views).  With
+    ``return_lse`` -> (out, lse [B,H,S] f32): each row's log-sum-exp of
+    its scaled, masked scores, +inf for a row that no key may see.
 
     CUDA tensors launch the kernel (or raise); CPU tensors run
-    :func:`flash_attention_ref`."""
+    :func:`flash_attention_ref` (and :func:`flash_attention_lse_ref`)."""
     _check(q, k, v)
     dev = q.device
     if dev.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window)
+        out = flash_attention_ref(q, k, v, causal=causal, window=window)
+        if not return_lse:
+            return out
+        return out, flash_attention_lse_ref(q, k, causal=causal,
+                                            window=window)
     if dev.type != "cuda":
         raise ValueError(f"the flash_attention kernel runs on CUDA tensors, "
                          f"not {dev}")
@@ -92,21 +102,24 @@ def flash_attention(q, k, v, *, causal=True, window=0):
     out = torch.empty_like(q)
     if out.stride(3) != 1:
         out = torch.empty(q.shape, dtype=q.dtype, device=dev)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=dev) \
+        if return_lse else None
     strides = (ctypes.c_longlong * 12)(*(x.stride(i) for x in (q, k, v, out)
                                          for i in range(3)))
     index = dev.index if dev.index is not None else \
         torch.cuda.current_device()
     lib = _lib()
     err = lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, kh,
-        s, t, dh, strides, float(1.0 / np.sqrt(dh)), int(bool(causal)),
-        int(window), _DTYPES[q.dtype], index,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), b, h, kh, s, t, dh,
+        strides, float(1.0 / np.sqrt(dh)), int(bool(causal)), int(window),
+        _DTYPES[q.dtype], index,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError("flash_attention kernel launch failed: "
                            + lib.flash_attention_error_string(err).decode())
     flash_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0

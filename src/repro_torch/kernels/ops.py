@@ -6,7 +6,13 @@ every shape the kernel takes: unlike the reference's dispatch there is no
 small-shape detour to the oracle) and runs the plain version on CPU
 tensors.  The mLSTM block calls :func:`mlstm_scan`; the RG-LRU block
 :func:`rglru_scan`; the attention layers call :func:`flash_attention`
-(prefill) and :func:`decode_attention` (decode).
+(prefill and training) and :func:`decode_attention` (decode).
+
+When grad mode is on and an input requires grad (training),
+:func:`flash_attention` and :func:`rglru_scan` go through their
+``torch.autograd.Function`` (:class:`~.flash_attention_bwd.
+FlashAttentionFn`, :class:`~.rglru_scan.RGLRUScanFn`), whose backward is
+a kernel too; otherwise, as in serving, straight to the kernel wrappers.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import flash_attention_bwd as _flash_bwd
 from repro_torch.kernels import mlstm_scan as _mlstm
 from repro_torch.kernels import rglru_scan as _rglru
 
@@ -23,7 +30,14 @@ def flash_attention(q, k, v, *, causal=True, window=0):
     """q: [B,H,S,dh]; k,v: [B,K,T,dh] -> [B,H,S,dh], laid out like q.
     Strided views are taken as they are (the head dim contiguous): the
     model's [B,S,H,dh] tensors arrive transposed, not copied."""
+    if _needs_grad(q, k, v):
+        return _flash_bwd.FlashAttentionFn.apply(q, k, v, causal, window)
     return _flash.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
 
 
 def decode_attention(q, k_cache, v_cache, lengths, starts=None):
@@ -54,4 +68,6 @@ def rglru_scan(a, x, h0=None):
     a, x = a.contiguous(), x.contiguous()
     if h0 is not None:
         h0 = h0.float().contiguous()
+    if _needs_grad(a, x, h0):
+        return _rglru.RGLRUScanFn.apply(a, x, h0)
     return _rglru.rglru_scan(a, x, h0)

@@ -10,28 +10,81 @@ import numpy as np
 import torch
 
 
+def attention_mask(s: int, t: int, causal: bool, window: int, device):
+    """[S, T] bool: key j is visible to query i (all of them unless
+    ``causal``: ``j <= i`` and, with a ``window``, ``j > i - window``)."""
+    iq = torch.arange(s, device=device)[:, None]
+    jk = torch.arange(t, device=device)[None, :]
+    mask = torch.ones((s, t), dtype=torch.bool, device=device)
+    if causal:
+        mask = jk <= iq
+        if window:
+            mask = mask & (jk > iq - window)
+    return mask
+
+
+def _masked_scores(q, k, causal, window):
+    """f32 scores [B,K,g,S,T] (GQA groups written out), ``-inf`` where
+    masked."""
+    b, h, s, dh = q.shape
+    kh, t = k.shape[1], k.shape[2]
+    qf = q.float().reshape(b, kh, h // kh, s, dh)
+    scores = torch.einsum("bkgsd,bktd->bkgst", qf, k.float()) \
+        / float(np.sqrt(dh))
+    mask = attention_mask(s, t, causal, window, q.device)
+    return scores.masked_fill(~mask, float("-inf"))
+
+
 def flash_attention_ref(q, k, v, *, causal=True, window=0):
     """q: [B,H,S,dh]; k,v: [B,K,T,dh] (GQA: H % K == 0) -> [B,H,S,dh].
 
     f32 scores, softmax and P.V; masked scores are ``-inf`` (a row with no
     valid key comes out NaN); the result in q's dtype."""
     b, h, s, dh = q.shape
-    kh, t = k.shape[1], k.shape[2]
-    g = h // kh
-    qf = q.float().reshape(b, kh, g, s, dh)
-    scores = torch.einsum("bkgsd,bktd->bkgst", qf, k.float()) \
-        / float(np.sqrt(dh))
-    iq = torch.arange(s, device=q.device)[:, None]
-    jk = torch.arange(t, device=q.device)[None, :]
-    mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
-    if causal:
-        mask = jk <= iq
-        if window:
-            mask = mask & (jk > iq - window)
-    scores = scores.masked_fill(~mask, float("-inf"))
+    scores = _masked_scores(q, k, causal, window)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgst,bktd->bkgsd", probs, v.float())
     return out.reshape(b, h, s, dh).to(q.dtype)
+
+
+def flash_attention_lse_ref(q, k, *, causal=True, window=0):
+    """The softmax's log-sum-exp rows [B,H,S] f32 of the scaled, masked
+    scores (the training forward's second output); ``+inf`` for a row
+    that no key may see, so that every probability of it is 0."""
+    b, h, s, _ = q.shape
+    lse = torch.logsumexp(_masked_scores(q, k, causal, window), dim=-1)
+    lse = lse.masked_fill(lse == float("-inf"), float("inf"))
+    return lse.reshape(b, h, s)
+
+
+def flash_attention_bwd_ref(q, k, v, out, lse, do, *, causal=True,
+                            window=0):
+    """(dq [B,H,S,dh] in q's dtype, dk, dv [B,K,T,dh] in k's) of
+    attention, step by step in f32 as the TPU kernels compute them
+    (``repro/kernels/flash_attention_bwd.py:162-222``), over the expanded
+    heads and group-summed at the end: ``delta = rowsum(o * do)``,
+    ``p = exp(s - lse)`` under the mask, ``ds = p (do v^T - delta)
+    scale``, ``dq = ds k``, ``dk = ds^T q``, ``dv = p^T do``."""
+    b, h, s, dh = q.shape
+    kh, t = k.shape[1], k.shape[2]
+    g = h // kh
+    scale = float(1.0 / np.sqrt(dh))
+    qf, dof = q.float(), do.float()
+    kx = k.float().repeat_interleave(g, dim=1)
+    vx = v.float().repeat_interleave(g, dim=1)
+    delta = torch.sum(out.float() * dof, dim=-1)                 # [B,H,S]
+    scores = torch.einsum("bhsd,bhtd->bhst", qf, kx) * scale
+    mask = attention_mask(s, t, causal, window, q.device)
+    p = torch.where(mask, torch.exp(scores - lse[..., None]),
+                    torch.zeros((), device=q.device))
+    dp = torch.einsum("bhsd,bhtd->bhst", dof, vx)
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.einsum("bhst,bhtd->bhsd", ds, kx)
+    dkh = torch.einsum("bhst,bhsd->bhtd", ds, qf)
+    dvh = torch.einsum("bhst,bhsd->bhtd", p, dof)
+    dk = dkh.reshape(b, kh, g, t, dh).sum(dim=2)
+    dv = dvh.reshape(b, kh, g, t, dh).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def decode_attention_ref(q, k_cache, v_cache, lengths, starts=None):
@@ -74,6 +127,28 @@ def rglru_scan_ref(a, x, h0=None):
         h = af[:, t] * h + xf[:, t]
         hs.append(h)
     return torch.stack(hs, dim=1).to(a.dtype)
+
+
+def rglru_scan_bwd_ref(a, h, dh, h0=None):
+    """The VJP of :func:`rglru_scan_ref` as a reverse time loop in f32:
+    ``g_t = dh_t + a_{t+1} g_{t+1}`` (the product, then the sum), then
+    ``dx_t = g_t``, ``da_t = g_t h_{t-1}`` (``h_{-1}`` = h0, or 0) and
+    ``dh0 = a_0 g_0``.  a, h, dh: [B,S,R] (h the forward's output); h0:
+    [B,R] f32 or None -> (da, dx in a's dtype, dh0 f32 or None)."""
+    af, hf, gf = a.float(), h.float(), dh.float()
+    s = a.shape[1]
+    g = gf[:, s - 1]
+    gs = [g]
+    for t in range(s - 2, -1, -1):
+        g = af[:, t + 1] * g + gf[:, t]
+        gs.append(g)
+    g = torch.stack(gs[::-1], dim=1)
+    first = torch.zeros_like(hf[:, :1]) if h0 is None \
+        else h0.float()[:, None]
+    h_prev = torch.cat([first, hf[:, :-1]], dim=1)
+    da = (g * h_prev).to(a.dtype)
+    dh0 = None if h0 is None else af[:, 0] * g[:, 0]
+    return da, g.to(a.dtype), dh0
 
 
 def mlstm_scan_ref(q, k, v, i_gate, f_gate, carry=None):

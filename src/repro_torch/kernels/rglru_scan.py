@@ -12,6 +12,14 @@ the kernel equals bit for bit.
 on anything the kernel does not take; it never falls back.  On CPU tensors
 it runs :func:`rglru_scan_ref`.  ``rglru_scan.launches`` counts the kernel
 launches.
+
+:class:`RGLRUScanFn` makes the scan differentiable.  Its VJP is itself a
+linear scan run backwards, ``g_t = dh_t + a_{t+1} g_{t+1}``, so the
+backward runs the same kernel over reversed and shifted inputs (the flips
+and the shift are copies; a kernel that walks backwards would save them),
+then ``dx = g``, ``da_t = g_t h_{t-1}`` and ``dh0 = a_0 g_0``, inside the
+profiler range ``repro_torch.rglru_scan_bwd``.  On the CPU the backward
+runs the plain :func:`rglru_scan_bwd_ref`.
 """
 
 from __future__ import annotations
@@ -19,11 +27,13 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import rglru_scan_ref
+from repro_torch.kernels.ref import rglru_scan_bwd_ref, rglru_scan_ref
 
-__all__ = ["rglru_scan", "rglru_scan_ref"]
+__all__ = ["rglru_scan", "rglru_scan_ref", "rglru_scan_bwd",
+           "rglru_scan_bwd_ref", "RGLRUScanFn"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -96,3 +106,50 @@ def rglru_scan(a, x, h0=None):
 
 
 rglru_scan.launches = 0
+
+
+def rglru_scan_bwd(a, h, dh, h0=None):
+    """The VJP of :func:`rglru_scan`: a, h, dh [B,S,R] (h the forward's
+    output, dh its gradient), h0 [B,R] f32 or None -> (da, dx in a's
+    dtype, dh0 f32 or None).
+
+    CUDA tensors run :func:`rglru_scan` (the kernel) once over
+    ``flip(a shifted one step left, 0 last)`` and ``flip(dh)``; CPU
+    tensors run :func:`rglru_scan_bwd_ref`.  In f32 the two are equal bit
+    for bit: the kernel rounds the product and the sum as the plain loop
+    does."""
+    if a.device.type == "cpu":
+        return rglru_scan_bwd_ref(a, h, dh, h0)
+    return reverse_scan_vjp(a, h, dh, h0, rglru_scan)
+
+
+def reverse_scan_vjp(a, h, dh, h0, scan):
+    """The VJP of the scan by one forward ``scan`` over reversed inputs:
+    ``g = flip(scan(flip(a_next), flip(dh)))`` with ``a_next[t] =
+    a[t + 1]`` and 0 last, then ``da_t = g_t h_{t-1}``, ``dx = g``,
+    ``dh0 = a_0 g_0``."""
+    a_next = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], dim=1)
+    g = scan(a_next.flip(1), dh.to(a.dtype).flip(1)).flip(1)
+    first = torch.zeros_like(h[:, :1]) if h0 is None \
+        else h0[:, None].to(h.dtype)
+    da = g * torch.cat([first, h[:, :-1]], dim=1)
+    dh0 = None if h0 is None else a[:, 0].float() * g[:, 0].float()
+    return da, g, dh0
+
+
+class RGLRUScanFn(torch.autograd.Function):
+    """Differentiable scan: ``RGLRUScanFn.apply(a, x, h0)`` -> h, as
+    :func:`rglru_scan`; the backward is :func:`rglru_scan_bwd`."""
+
+    @staticmethod
+    def forward(ctx, a, x, h0):
+        h = rglru_scan(a, x, h0)
+        ctx.save_for_backward(a, h, h0)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, h, h0 = ctx.saved_tensors
+        with record_function("repro_torch.rglru_scan_bwd"):
+            da, dx, dh0 = rglru_scan_bwd(a, h, dh.contiguous(), h0)
+        return da, dx, dh0

@@ -2,10 +2,12 @@
 einsum, RMS norm, RoPE, GQA attention, the gated FFN and the attention
 block with its KV cache.
 
-Attention runs in the port's kernels: prefill in ``flash_attention`` and
-decode in ``decode_attention`` (:mod:`repro_torch.kernels.ops`), which
-launch the CUDA kernels on the card and run their plain versions on the
-CPU.  A caller may pass ``flash_attention=`` / ``decode_attention=`` to
+Attention runs in the port's kernels: prefill and training in
+``flash_attention`` and decode in ``decode_attention``
+(:mod:`repro_torch.kernels.ops`), which launch the CUDA kernels on the
+card and run their plain versions on the CPU; under autograd (training)
+``flash_attention`` is differentiable, its backward the
+``flash_attention_bwd`` kernels.  A caller may pass ``flash_attention=`` / ``decode_attention=`` to
 run another implementation of the same function (``chip_smoke.py`` runs
 the plain versions on the card that way).  The kernels do P.V in f32;
 the JAX package's jnp attention rounds the probabilities to the compute

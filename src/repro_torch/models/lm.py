@@ -19,6 +19,13 @@ reference's functions work on pytrees.  :func:`params_from_reference`
 and :func:`cache_from_reference` / :func:`cache_to_reference` carry the
 JAX package's parameters and caches across as numpy trees.
 
+Training: :func:`loss_fn` runs :func:`forward_train`, the differentiable
+forward (each block under ``torch.utils.checkpoint`` when ``cfg.remat`` is
+set, the reference's ``jax.checkpoint``), and :func:`cross_entropy`.
+Parameters take gradients when built with ``requires_grad=True``; serving
+builds them without, and its entry points (:func:`forward`,
+:func:`prefill`, :func:`decode_step`) run under ``torch.no_grad()``.
+
 The step functions take keyword arguments naming another implementation
 of a kernel's function (``mlstm_scan``, ``rglru_scan``,
 ``flash_attention``, ``decode_attention``); by default each block calls
@@ -32,11 +39,14 @@ from functools import partial
 import numpy as np
 import torch
 from torch import nn
+from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve
 from repro_torch.models import layers, rglru, xlstm
 from repro_torch.models.config import DTYPES, ModelConfig
 from repro_torch.models.layers import PSpec, ein, rms_norm
+from repro_torch.tree import from_numpy, to_numpy
 
 BLOCK_SCHEMAS = {
     "attn": partial(layers.attn_schema, local=False),
@@ -162,21 +172,24 @@ class ParamTree(nn.Module):
     """A nested schema as modules: a :class:`PSpec` leaf is a parameter, a
     dict a submodule, a list an ``nn.ModuleList``.  ``leaf(spec, path)``
     gives each leaf's tensor, visited in sorted-key order (the order the
-    reference's tree flattens in)."""
+    reference's tree flattens in); the parameters take gradients when
+    ``requires_grad`` is set."""
 
-    def __init__(self, schema: dict, leaf, path: tuple = ()):
+    def __init__(self, schema: dict, leaf, path: tuple = (),
+                 requires_grad: bool = False):
         super().__init__()
         for name in sorted(schema):
             node = schema[name]
             if isinstance(node, PSpec):
                 self.register_parameter(name, nn.Parameter(
-                    leaf(node, path + (name,)), requires_grad=False))
+                    leaf(node, path + (name,)), requires_grad=requires_grad))
             elif isinstance(node, list):
                 self.add_module(name, nn.ModuleList(
-                    ParamTree(s, leaf, path + (name, i))
+                    ParamTree(s, leaf, path + (name, i), requires_grad)
                     for i, s in enumerate(node)))
             else:
-                self.add_module(name, ParamTree(node, leaf, path + (name,)))
+                self.add_module(name, ParamTree(node, leaf, path + (name,),
+                                                requires_grad))
 
     def tree(self) -> dict:
         """The parameters as the nested dict / list tree of the schema."""
@@ -190,19 +203,22 @@ class ParamTree(nn.Module):
 class Model(ParamTree):
     """The LM's parameters for one config (its schema's leaves)."""
 
-    def __init__(self, cfg: ModelConfig, leaf):
-        super().__init__(build_schema(cfg), leaf)
+    def __init__(self, cfg: ModelConfig, leaf, requires_grad: bool = False):
+        super().__init__(build_schema(cfg), leaf, requires_grad=requires_grad)
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Model:
+def init_params(cfg: ModelConfig, seed: int = 0, device=None, *,
+                requires_grad: bool = False) -> Model:
     """Random parameters from the schema's init recipes, drawn from a
     ``torch.Generator`` seeded with ``seed`` on the target device (not
-    bit-equal to the reference's ``jax.random`` init)."""
+    bit-equal to the reference's ``jax.random`` init).  Training asks for
+    ``requires_grad``; serving does not."""
     dev = resolve(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     dtype = DTYPES[cfg.param_dtype]
-    return Model(cfg, lambda ps, _path: _init_leaf(ps, gen, dtype, dev))
+    return Model(cfg, lambda ps, _path: _init_leaf(ps, gen, dtype, dev),
+                 requires_grad)
 
 
 def _lookup(tree, path):
@@ -211,7 +227,8 @@ def _lookup(tree, path):
     return tree
 
 
-def params_from_reference(cfg: ModelConfig, np_tree, device=None) -> Model:
+def params_from_reference(cfg: ModelConfig, np_tree, device=None, *,
+                          requires_grad: bool = False) -> Model:
     """A :class:`Model` holding the JAX package's parameter tree (its
     leaves as numpy arrays or anything ``np.asarray`` takes)."""
     dev = resolve(device)
@@ -224,7 +241,7 @@ def params_from_reference(cfg: ModelConfig, np_tree, device=None) -> Model:
                              f"has shape {x.shape}, schema {ps.shape}")
         return torch.from_numpy(x.copy()).to(dtype=dtype, device=dev)
 
-    return Model(cfg, leaf)
+    return Model(cfg, leaf, requires_grad)
 
 
 def _tree(params) -> dict:
@@ -276,31 +293,17 @@ def init_cache(cfg: ModelConfig, batch: int, t_cache: int, device=None):
     return _map_cache(leaf, cache_schema(cfg, batch, t_cache))
 
 
-def _from_numpy(x) -> torch.Tensor:
-    x = np.array(x, copy=True)
-    if x.dtype.name == "bfloat16":          # ml_dtypes' bf16: same bits
-        return torch.from_numpy(x.view(np.uint16)).view(torch.bfloat16)
-    return torch.from_numpy(x)
-
-
-def _to_numpy(t: torch.Tensor) -> np.ndarray:
-    t = t.detach().cpu()
-    if t.dtype == torch.bfloat16:
-        import ml_dtypes                    # numpy has no bf16 of its own
-        return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
-    return t.numpy()
-
-
 def cache_from_reference(np_cache, device=None):
     """The JAX package's cache (a list of per-layer dicts, or one dict of
     stacked leaves for a scanned stack) as tensors of the same dtypes."""
     dev = resolve(device)
-    return _map_cache(lambda v: _from_numpy(v).to(dev), np_cache)
+    return _map_cache(lambda v: from_numpy(np.array(v, copy=True)).to(dev),
+                      np_cache)
 
 
 def cache_to_reference(cache):
     """The port's cache as the JAX package's tree of numpy arrays."""
-    return _map_cache(_to_numpy, cache)
+    return _map_cache(to_numpy, cache)
 
 
 # ---------------------------------------------------------------------------
@@ -366,16 +369,39 @@ def _join_caches(caches: list, cfg: ModelConfig):
     return caches
 
 
-@torch.no_grad()
-def forward(params, cfg: ModelConfig, batch, **kernels):
-    """-> f32 logits [B, S, V]."""
+def forward_train(params, cfg: ModelConfig, batch, **kernels):
+    """-> f32 logits [B, S, V], differentiable.  With ``cfg.remat`` and
+    grad mode on, each block runs under ``torch.utils.checkpoint``: only
+    its input is saved, and the backward runs it again (the reference's
+    ``jax.checkpoint`` per block, ``repro/models/lm.py:250-265``)."""
     _check_kernels(kernels)
     p = _tree(params)
     x = _embed_tokens(p, cfg, batch["tokens"])
     positions = _positions(*x.shape[:2], x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     for kind, lp in _layers(p, cfg):
-        x = BLOCK_APPLY[kind](lp, x, cfg, positions=positions, **kernels)
+        fn = partial(_block_in_range, BLOCK_APPLY[kind], cfg=cfg,
+                     positions=positions, **kernels)
+        if remat:
+            # The blocks draw no random numbers: no RNG state to keep.
+            x = checkpoint(fn, lp, x, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = fn(lp, x)
     return _unembed(p, cfg, x)
+
+
+def _block_in_range(apply, lp, x, **kw):
+    """``apply(lp, x)`` inside the profiler range ``repro_torch.block``,
+    which remat enters again when the backward recomputes the block."""
+    with record_function("repro_torch.block"):
+        return apply(lp, x, **kw)
+
+
+@torch.no_grad()
+def forward(params, cfg: ModelConfig, batch, **kernels):
+    """-> f32 logits [B, S, V] (no gradients)."""
+    return forward_train(params, cfg, batch, **kernels)
 
 
 @torch.no_grad()
@@ -410,3 +436,32 @@ def decode_step(params, cfg: ModelConfig, tokens, lengths, cache,
                                    cache=lc, lengths=lengths, **kernels)
         new_cache.append(nc)
     return _unembed(p, cfg, x), _join_caches(new_cache, cfg), lengths + 1
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits, labels):
+    """Mean next-token NLL. logits f32 [B,S,V]; labels [B,S] (-1 = pad).
+
+    The reference's formula (``repro/models/lm.py:331-342``) with the
+    label's logit gathered instead of summed against a [B,S,V] one-hot:
+    that sum adds only exact zeros to the one term, so the value is the
+    same, and the one-hot would cost as much memory as the logits."""
+    m = torch.amax(logits.detach(), dim=-1, keepdim=True)
+    shifted = logits - m
+    lse = torch.log(torch.sum(torch.exp(shifted), dim=-1)) + m[..., 0]
+    idx = torch.clamp_min(labels, 0).long()[..., None]
+    correct = torch.gather(shifted, -1, idx)[..., 0] + m[..., 0]
+    w = (labels >= 0).to(torch.float32)
+    nll = (lse - correct) * w
+    return torch.sum(nll) / torch.clamp_min(torch.sum(w), 1.0)
+
+
+def loss_fn(params, cfg: ModelConfig, batch, **kernels):
+    """-> (loss, {"loss": loss}) of :func:`forward_train` on
+    ``batch["tokens"]`` against ``batch["labels"]``."""
+    logits = forward_train(params, cfg, batch, **kernels)
+    loss = cross_entropy(logits, batch["labels"])
+    return loss, {"loss": loss}

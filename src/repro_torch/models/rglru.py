@@ -12,7 +12,8 @@ Residual block = gated linear recurrence mixer + GeGLU MLP::
 The recurrence runs in the ``rglru_scan`` kernel
 (:func:`repro_torch.kernels.ops.rglru_scan`) on the card, and in its plain
 version on the CPU: a prefill scans the whole sequence, a decode step
-scans one step from the carried state.  The JAX package's prefill runs
+scans one step from the carried state, and under autograd (training) the
+backward runs the same kernel over reversed inputs.  The JAX package's prefill runs
 ``jax.lax.associative_scan`` over the same recurrence, which rounds in
 another order, and its decode step ``a * h + b``, which the scan of one
 step equals.  A caller may pass ``rglru_scan=`` to run another

@@ -281,6 +281,16 @@ def client_think_gaps(seed, client: int, n: int,
     return -np.log1p(-u.astype(np.float64))
 
 
+def straggle_uniforms(seed, replica: int, n: int,
+                      *, stream: int = STREAM_STRAGGLE) -> np.ndarray:
+    """Straggler-decision uniforms for one replica/pod: element ``i`` is
+    pure in ``(seed, replica, i)`` (the draw for step ``i`` is the same
+    whatever the horizon, the pod count or the commit interleaving),
+    bit-identical to the reference's (as f64)."""
+    return _uniform_of(counter_key(stream_key(seed, stream), replica),
+                       n).astype(np.float64)
+
+
 def choice(values, n: int, seed: int, *, stream: int = STREAM_COLS,
            weights=None) -> np.ndarray:
     """Counter-based categorical draw over ``values`` (uniform unless

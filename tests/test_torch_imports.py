@@ -48,6 +48,19 @@ def test_port_files_exist():
                  "src/repro_torch/models/rglru.py",
                  "src/repro_torch/kernels/rglru_scan.py",
                  "src/repro_torch/kernels/csrc/rglru_scan.cu",
+                 "src/repro_torch/kernels/flash_attention_bwd.py",
+                 "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                 "src/repro_torch/tree.py",
+                 "src/repro_torch/optim/adamw.py",
+                 "src/repro_torch/train/step.py",
+                 "src/repro_torch/train/trainer.py",
+                 "src/repro_torch/core/locks.py",
+                 "src/repro_torch/core/reorderable.py",
+                 "src/repro_torch/core/libasl.py",
+                 "src/repro_torch/data/pipeline.py",
+                 "src/repro_torch/dist/staleness.py",
+                 "src/repro_torch/ckpt/checkpointer.py",
+                 "src/repro_torch/launch/train.py",
                  "chip_smoke.py"):
         assert want in names
 
@@ -99,6 +112,20 @@ def test_port_imports_with_jax_and_repro_blocked():
             "(2, 1), dtype=torch.long), torch.full((2,), 5), cache)\n"
             "assert logits.shape == (2, 1, cfg.vocab)\n"
             "assert bool(torch.isfinite(logits).all())\n"
+            "import shutil, tempfile\n"
+            "import repro_torch.kernels.flash_attention_bwd\n"
+            "import repro_torch.optim.adamw, repro_torch.train.step\n"
+            "import repro_torch.core.locks, repro_torch.core.reorderable\n"
+            "import repro_torch.core.libasl, repro_torch.data.pipeline\n"
+            "import repro_torch.dist.staleness, repro_torch.ckpt.checkpointer\n"
+            "import repro_torch.train.trainer, repro_torch.tree\n"
+            "from repro_torch.launch import train\n"
+            "d = tempfile.mkdtemp()\n"
+            "out = train.main(['--arch', 'recurrentgemma-2b', '--tiny', "
+            "'--steps', '2', '--global-batch', '2', '--seq-len', '8', "
+            "'--ckpt-dir', d], device='cpu')\n"
+            "shutil.rmtree(d)\n"
+            "assert out['step'] == 2\n"
             "assert not any(m.split('.')[0] in ('jax', 'repro') "
             "for m, v in sys.modules.items() if v is not None)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
