@@ -36,10 +36,13 @@ Phases, each of which fails the script (non-zero exit, no result line):
    prefill's and a decode step's time goes, block by block.
 7. Hold ``flash_attention`` against its plain version on the card (f32
    and bf16, head dims 64, 128 and 256, GQA groups 1 and 8 and recurrentgemma's
-   10 q heads on 1 kv head, ragged S and T, causal or not, window 0 or
-   64) within the JAX package's kernel bar (TOL), then time it at the
-   yi-6b and recurrentgemma-2b prefill shapes beside its bound, the
-   plain version and PyTorch's fused attention.
+   10 q heads on 1 kv head, ragged S and T, among them the edges of the
+   tensor-core route's 64-row tiles, 63/65, 64/129, 129/64 and 1/4096,
+   causal or not, window 0 or 64) within the JAX package's kernel bar
+   (TOL), every bf16 case on the tensor-core route and every f32 case on
+   the f32 kernel; then time it at the yi-6b and recurrentgemma-2b
+   prefill shapes beside its bound, the plain version, PyTorch's fused
+   attention and the f32-pipe kernel's earlier time.
 8. The same for ``decode_attention`` (per-row lengths 1, 257, 511, T and
    a mix, T of 512 and 300; and ring starts: a local block's ring of 17
    slots with window 16 at positions 16, 17, 40 and a mix), timed at the
@@ -53,7 +56,8 @@ Phases, each of which fails the script (non-zero exit, no result line):
 10. Serve yi-6b: one calibration, then asl, fifo and greedy on that cost
     model at a rate that puts half of the slot on prefill, TTFT SLO 4 x
     the mean prompt's prefill, with both attention counters set to 0
-    just before and read just after; then the
+    just before and read just after (every ``flash_attention`` launch on
+    the tensor-core route); then the
     ``python -m repro_torch.launch.serve --arch yi-6b`` CLI once at that
     rate, in its own process.  The yi-6b weights are freed.
 11. Hold ``rglru_scan`` against its plain version on the card, bit for
@@ -72,20 +76,27 @@ Phases, each of which fails the script (non-zero exit, no result line):
     (0.5 / (4.667 prefill chunks + 80 decode steps)), TTFT SLO 4 x the
     mean prompt's prefill, with the ``rglru_scan``, ``flash_attention``
     and ``decode_attention`` counters set to 0 just before and read just
-    after.
+    after (every ``flash_attention`` launch on the tensor-core route).
 14. Hold ``flash_attention``'s log-sum-exp rows (the training forward's
     second output) and ``flash_attention_bwd`` against their plain
     versions on the card: f32 and bf16, head dims 32, 64, 128 and 256,
     (H, K) of (4, 4), (32, 4) and (10, 1), S and T of 1/1, 77/300,
-    256/256 and 300/77, causal or not, window 0 or 64; the rows within
+    256/256 and 300/77 and the tile edges 63/65, 64/129, 129/64 and
+    1/4096, causal or not, window 0 or 64, each dtype on its route; the
+    rows within
     1e-4 (+inf where no key is visible), the forward without them
     unchanged bit for bit, dq, dk and dv within the JAX package's bar
     (``tests/test_kernels_bwd.py``: 5e-5 f32, 5e-2 bf16).  At the
     recurrentgemma-2b and yi-6b training shapes (B=1, S=T=4096, bf16) the
     forward's output (TOL), its rows (1e-4) and dq, dk and dv (5e-2)
-    against the plain versions element by element; one backward call
-    timed beside its bound, the plain version, PyTorch's fused
-    attention's backward and the profiler's kernel time.
+    against the plain versions element by element, out, dq, dk and dv
+    also by relative error ||a - w|| / ||w|| (1 %; planted faults must
+    read above it), and two backward calls on the same inputs bit-equal;
+    one backward call and one forward with its rows timed beside their
+    bounds, the plain versions, PyTorch's fused attention and the
+    profiler's kernel time, and the f32-pipe kernels' earlier times; the
+    backward's dk/dv split, where the wrapper takes one, timed against
+    none.
 15. Hold the ``rglru_scan`` backward (the kernel over reversed inputs)
     against the plain reverse loop, bit for bit in f32 (da, dx, dh0):
     with and without h0, S in {1, 7, 4096}, R in {2560, 100}; time it at
@@ -98,7 +109,9 @@ Phases, each of which fails the script (non-zero exit, no result line):
     ``repro_torch.launch.train.main`` (3 steps of 2 x 4096 tokens in 2
     microbatches), with the ``flash_attention``, ``flash_attention_bwd``
     and ``rglru_scan`` counters set to 0 just before and read just after;
-    each must be 3 x its launches per step (32, 16 and 108).  Finite
+    each must be 3 x its launches per step (32, 16 and 108), every
+    attention launch on the tensor-core route, and no incoming gradient
+    copied before ``flash_attention_bwd``.  Finite
     losses and grad norms; the step time, tokens/s, MFU and peak memory.
 18. The trainer's final checkpoint (31.9 GB of params, m and v, in a
     temporary directory removed at the end) restored into a fresh
@@ -188,6 +201,25 @@ TRAIN_ARGS = ["--arch", "recurrentgemma-2b", "--steps", str(TRAIN_STEPS),
               str(TRAIN_SEQ), "--microbatches", str(TRAIN_MICROBATCHES),
               "--ckpt-every", "1000"]
 FLASH_BWD_TOL = {"float32": 5e-5, "bfloat16": 5e-2}
+# At the training shapes a typical |dq| or |out| is a few hundredths, the
+# size of the element-by-element bars, so each of out, dq, dk and dv is
+# also held to its relative error ||a - w|| / ||w|| against the plain
+# version: bf16 rounding reads well under this bar, and planted faults
+# (a tensor scaled by each of PLANTED_SCALES; dk, dv missing half of each
+# GQA group's q heads, one of two dk/dv splits left out) must read above
+# it.  A 3 % scale is within the element-by-element bars wherever |w| < 1.
+TRAIN_REL_TOL = 1e-2
+PLANTED_SCALES = (0.9, 0.97)
+# The f32-pipe kernels' times before the tensor-core route (PERF.md's
+# kernel table, measured by this script on an H100 80GB HBM3 at 700 W),
+# printed beside this run's.
+EARLIER_MS = {
+    "flash_attention yi-6b serve": "0.2934-0.3148",
+    "flash_attention recurrentgemma-2b serve": "0.2421-0.2494",
+    "flash_attention with LSE recurrentgemma-2b train": "3.556-3.658",
+    "flash_attention_bwd recurrentgemma-2b train": "18.037-18.312",
+    "flash_attention_bwd yi-6b train": "33.754-33.803",
+}
 TRAIN_LOSS_RTOL = 0.005
 TRAIN_GRAD_TOL = 0.03
 
@@ -259,12 +291,13 @@ def state_digest(st) -> str:
 def instantiation(line: str) -> str:
     """The kernel and template arguments that ptxas's "Compiling entry
     function" line names, readable: ``dq(f32, 256, 64, 32)`` for
-    ``...9dq_kernelIfLi256ELi64ELi32EE...``."""
+    ``...9dq_kernelIfLi256ELi64ELi32EE...``, ``dkv_reduce()`` for a
+    kernel that is no template."""
     import re
-    m = re.search(r"(?<=[0-9])([a-z_]+)_kernelI(.*?)EEv", line)
+    m = re.search(r"(?<=[0-9])([a-z_]+)_kernel(?:I(.*?)EEv)?", line)
     if not m:
         return ""
-    args = m.group(2).replace("13__nv_bfloat16", "bf16,").replace(
+    args = (m.group(2) or "").replace("13__nv_bfloat16", "bf16,").replace(
         "Li", "").replace("E", ",")
     args = re.sub(r"^f", "f32,", args)
     return m.group(1) + "(" + ", ".join(a for a in args.split(",") if a) \
@@ -747,6 +780,7 @@ def flash_case(fa, gen, b, h, kh, s, t, dh, dtype, causal, window) -> tuple:
         .to(dtype)
     q, k, v = f(b, h, s, dh), f(b, kh, t, dh), f(b, kh, t, dh)
     n0 = fa.flash_attention.launches
+    tc0 = fa.flash_attention.launches_tc
     got = fa.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     want = fa.flash_attention_ref(q, k, v, causal=causal, window=window)
@@ -756,19 +790,25 @@ def flash_case(fa, gen, b, h, kh, s, t, dh, dtype, causal, window) -> tuple:
     ok = (torch.allclose(a, w, atol=tol, rtol=tol)
           and bool(torch.isfinite(got).all())
           and fa.flash_attention.launches == n0 + 1
+          and fa.flash_attention.launches_tc == tc0 + (dtype ==
+                                                       torch.bfloat16)
           and got.shape == q.shape and got.dtype == q.dtype)
     return err, ok
 
 
 # (H, K, dh) of the sweeps: GQA groups 1 and 8 at head dims 64, 128 and
-# 256, and recurrentgemma-2b's 10 q heads on one kv head of 256.
+# 256, and recurrentgemma-2b's 10 q heads on one kv head of 256.  S, T of
+# the flash sweep: the first port's, then the edges of the tensor-core
+# route's 64-row tiles.
 FLASH_HEADS = [(8, 8 // g, dh) for dh in (64, 128, 256) for g in (1, 8)] \
     + [(10, 1, 256)]
+FLASH_LENGTHS = ((128, 128), (200, 200), (1, 200), (200, 1), (77, 300),
+                 (63, 65), (64, 129), (129, 64), (1, 4096))
 DECODE_HEADS = [(32, 32 // g, dh) for dh in (64, 128, 256) for g in (1, 8)] \
     + [(10, 1, 256)]
 
 
-def flash_timing(fa, gen, b, h, kh, s, dh, window) -> dict:
+def flash_timing(fa, gen, name, b, h, kh, s, dh, window) -> dict:
     """One causal prefill shape in bf16, in the model's layout
     (transposed views): the kernel timed against its bound, the plain
     version and PyTorch's fused attention."""
@@ -792,13 +832,14 @@ def flash_timing(fa, gen, b, h, kh, s, dh, window) -> dict:
     # The causal products; a window of 0 or >= S masks nothing more.
     flops = 2 * 2 * b * h * s * (s + 1) // 2 * dh
     bnd, by = bound(n_bytes, flops)
-    print(f"flash_attention B={b} H={h} K={kh} S=T={s} dh={dh} window="
-          f"{window} bf16 causal: kernel {kernel_ms:.4f} ms/launch (of "
+    print(f"flash_attention {name} B={b} H={h} K={kh} S=T={s} dh={dh} "
+          f"window={window} bf16 causal: kernel {kernel_ms:.4f} ms/launch (of "
           f"{[round(x, 4) for x in times]}; on the card {dev_ms:.4f}), "
           f"plain {plain_ms:.3f} ms, "
           f"library {lib_ms:.4f} ms, bound {bnd:.5f} ms ({by}; "
           f"{n_bytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), max abs err "
-          f"{err:.3g}", flush=True)
+          f"{err:.3g}; PERF.md row before the tensor-core route "
+          f"{EARLIER_MS['flash_attention ' + name]} ms", flush=True)
     if err > attn_tol(torch.bfloat16):
         raise AssertionError(f"flash_attention != plain at B={b} H={h} "
                              f"K={kh} S={s} dh={dh}")
@@ -815,10 +856,11 @@ def phase_flash(fa) -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
     n_bad = n_cases = 0
+    n_tc0, n_all0 = fa.flash_attention.launches_tc, \
+        fa.flash_attention.launches
     for dtype in (torch.float32, torch.bfloat16):
         for h, kh, dh in FLASH_HEADS:
-            for s, t in ((128, 128), (200, 200), (1, 200), (200, 1),
-                         (77, 300)):
+            for s, t in FLASH_LENGTHS:
                 for causal in (True, False):
                     for window in (0, 64):
                         err, ok = flash_case(fa, gen, 2, h, kh, s, t, dh,
@@ -832,12 +874,16 @@ def phase_flash(fa) -> dict:
                                   f"OVER TOLERANCE", flush=True)
     print(f"flash_attention sweep: {n_cases - n_bad}/{n_cases} cases "
           f"within tolerance (f32/bf16 x (H, K, dh) in {FLASH_HEADS} x "
-          f"S,T in 128/128 200/200 1/200 200/1 77/300 x causal x window "
-          f"0/64)", flush=True)
+          f"S,T in {' '.join(f'{a}/{b}' for a, b in FLASH_LENGTHS)} x "
+          f"causal x window 0/64); tensor-core launches "
+          f"{fa.flash_attention.launches_tc - n_tc0} of "
+          f"{fa.flash_attention.launches - n_all0}", flush=True)
     if n_bad:
         raise AssertionError(f"flash_attention != plain in {n_bad} cases")
-    yi = flash_timing(fa, gen, SERVE_BATCH, 32, 4, SERVE_CHUNK, 128, 0)
-    flash_timing(fa, gen, SERVE_BATCH, 10, 1, SERVE_CHUNK, 256, 2048)
+    yi = flash_timing(fa, gen, f"{YI} serve", SERVE_BATCH, 32, 4,
+                      SERVE_CHUNK, 128, 0)
+    flash_timing(fa, gen, f"{RG} serve", SERVE_BATCH, 10, 1, SERVE_CHUNK,
+                 256, 2048)
     return yi
 
 
@@ -1133,6 +1179,19 @@ def device_busy(fn, n) -> tuple:
     return wall, busy, 1 - busy / wall
 
 
+def kernel_split(fn, n) -> dict:
+    """ms a call of each kernel that ``fn`` launches, by name (its
+    template argument kept), from ``torch.profiler``."""
+    import re
+    from torch.autograd import DeviceType
+    split = {}
+    for e in card_events(profiled(fn, n), DeviceType):
+        m = re.search(r"\w+_kernel(<\d+>)?", e.name)
+        key = m.group(0) if m else e.name[:40]
+        split[key] = split.get(key, 0.0) + e.time_range.elapsed_us() / 1e3 / n
+    return split
+
+
 def phase_full_model(arch, n_want, counters, plain, time_layer):
     """``arch`` at its full config on the card: the parameter count, a
     prefill and 8 decode steps through the kernels and through the plain
@@ -1257,6 +1316,8 @@ def phase_serve_once(arch, counters, params, *, with_decode) -> tuple:
     cfg = registry.get(arch)[0]
     for f in counters.values():
         f.launches = 0
+        if hasattr(f, "launches_tc"):
+            f.launches_tc = 0
     cost = serve.calibrated_cost(cfg, batch=SERVE_BATCH,
                                  prefill_chunk=SERVE_CHUNK, device="cuda",
                                  params=params)
@@ -1271,6 +1332,9 @@ def phase_serve_once(arch, counters, params, *, with_decode) -> tuple:
                                duration=SERVE_DURATION_S, slo_ttft=slo)
             for sched in SCHEDULERS}
     launches = {k: f.launches for k, f in counters.items()}
+    # Every attention call of a serving run is bf16: the tensor-core route.
+    routes = {k: f.launches_tc for k, f in counters.items()
+              if hasattr(f, "launches_tc")}
     print(f"serve {arch}: calibrated prefill chunk "
           f"{cost.prefill_chunk_s * 1e3:.2f} ms, decode step "
           f"{cost.decode_step_s * 1e3:.2f} ms; Poisson {rate:.4f} "
@@ -1283,9 +1347,14 @@ def phase_serve_once(arch, counters, params, *, with_decode) -> tuple:
     print(f"serve {arch}: launches {launches} (one calibration: 6 "
           f"prefills and 21 decode steps of {cfg.n_layers} layers)",
           flush=True)
+    print(f"serve {arch}: tensor-core route launches {routes} of "
+          f"{ {k: launches[k] for k in routes} }", flush=True)
     if min(launches.values()) <= 0:
         raise AssertionError(f"the {arch} serving path launched a kernel "
                              f"no time: {launches}")
+    if any(n != launches[k] for k, n in routes.items()):
+        raise AssertionError(f"the {arch} serving path left the "
+                             f"tensor-core route: {routes} of {launches}")
     return launches, rate, slo
 
 
@@ -1470,6 +1539,14 @@ def lse_close(lse, want) -> bool:
             lse[fin], want[fin], atol=1e-4, rtol=1e-5))
 
 
+def rel_err(a, w) -> float:
+    """||a - w|| / ||w|| over the whole tensor, in f32."""
+    import torch
+    a, w = a.float(), w.float()
+    return float(torch.linalg.vector_norm(a - w)
+                 / torch.linalg.vector_norm(w))
+
+
 def grads_close(got, want, tol) -> bool:
     """(dq, dk, dv) against the plain version's, element by element."""
     import torch
@@ -1490,6 +1567,7 @@ def flash_bwd_case(fa, fb, gen, b, h, kh, s, t, dh, dtype, causal,
     q, k, v, do = f(b, h, s, dh), f(b, kh, t, dh), f(b, kh, t, dh), \
         f(b, h, s, dh)
     n0, m0 = fa.flash_attention.launches, fb.flash_attention_bwd.launches
+    tc0 = fa.flash_attention.launches_tc, fb.flash_attention_bwd.launches_tc
     out, lse = fa.flash_attention(q, k, v, causal=causal, window=window,
                                   return_lse=True)
     plain_out = fa.flash_attention(q, k, v, causal=causal, window=window)
@@ -1504,9 +1582,13 @@ def flash_bwd_case(fa, fb, gen, b, h, kh, s, t, dh, dtype, causal,
     tol = bwd_tol(dtype)
     err = max(float((a.float() - w.float()).abs().max()) for a, w in
               zip(got, want))
+    tc = int(dtype == torch.bfloat16)
     ok = grads_close(got, want, tol) \
         and fa.flash_attention.launches == n0 + 2 \
-        and fb.flash_attention_bwd.launches == m0 + 1
+        and fb.flash_attention_bwd.launches == m0 + 1 \
+        and (fa.flash_attention.launches_tc,
+             fb.flash_attention_bwd.launches_tc) == (tc0[0] + 2 * tc,
+                                                     tc0[1] + tc)
     return lse_ok, same, err, ok
 
 
@@ -1540,8 +1622,10 @@ def forward_with_lse_timing(fa, q, k, v, window) -> dict:
     from repro_torch.kernels.ref import attention_mask
     b, h, s, dh = q.shape
     kh = k.shape[1]
-    ms, _ = median_ms(lambda: fa.flash_attention(
-        q, k, v, causal=True, window=window, return_lse=True), reps=3)
+    fwd = lambda: fa.flash_attention(q, k, v, causal=True, window=window,
+                                     return_lse=True)
+    ms, _ = median_ms(fwd, reps=3)
+    _, card_ms, _ = device_busy(fwd, 3)
     plain = lambda: (fa.flash_attention_ref(q, k, v, causal=True,
                                             window=window),
                      fa.flash_attention_lse_ref(q, k, causal=True,
@@ -1559,16 +1643,18 @@ def forward_with_lse_timing(fa, q, k, v, window) -> dict:
     flops = 2 * 2 * dh * b * h * visible_pairs(s, s, True, window)
     bnd, by = bound(n_bytes, flops)
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": bnd, "bound_by": by}
+            "bound_ms": bnd, "bound_by": by, "card_ms": card_ms}
 
 
 def flash_bwd_timing(fa, fb, gen, name, b, h, kh, s, dh, window) -> dict:
     """One causal training shape in bf16, in the model's layout
     (transposed views): the forward's output and LSE rows and the
     backward's dq, dk and dv against the plain versions element by
-    element (ATTN_TOL, 1e-4, FLASH_BWD_TOL), then the backward timed
-    against its bound, the plain version and PyTorch's fused attention's
-    backward."""
+    element (ATTN_TOL, 1e-4, FLASH_BWD_TOL) and, for out, dq, dk and dv,
+    by relative error (TRAIN_REL_TOL, which planted faults must exceed),
+    then the backward timed against its bound, the plain version and
+    PyTorch's fused attention's backward, and with its dk/dv split
+    against none."""
     import torch
     f = lambda *shape: torch.randn(*shape, generator=gen, device="cuda") \
         .to(torch.bfloat16)
@@ -1582,6 +1668,10 @@ def flash_bwd_timing(fa, fb, gen, name, b, h, kh, s, dh, window) -> dict:
     out_err = float((out.float() - want_out.float()).abs().max())
     out_ok = out.dtype == want_out.dtype and bool(torch.allclose(
         out.float(), want_out.float(), atol=tol, rtol=tol))
+    rel = {"out": rel_err(out, want_out)}
+    planted = {f"out x {c}": (rel_err(out * c, want_out), bool(
+        torch.allclose((out * c).float(), want_out.float(), atol=tol,
+                       rtol=tol))) for c in PLANTED_SCALES}
     del want_out
     lse_ok = lse_close(lse, fa.flash_attention_lse_ref(q, k, causal=True,
                                                        window=window))
@@ -1590,42 +1680,122 @@ def flash_bwd_timing(fa, fb, gen, name, b, h, kh, s, dh, window) -> dict:
                                          window=window)
     kernel_ms, times = median_ms(run, reps=3)
     _, dev_ms, _ = device_busy(run, 3)
+    split = kernel_split(run, 3)
     got = run()
+    again = run()
+    repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+    del again
+    # The dk/dv split the wrapper picks, timed against no split (the
+    # wrapper's choice swapped out for these calls only), alternating.
+    chosen = fb.dkv_splits(b, kh, s, torch.cuda.get_device_properties(
+        q.device).multi_processor_count)
+    by_splits, unsplit = {}, None
+    if chosen > 1:
+        pick = fb.dkv_splits
+        try:
+            for n_split in (1, chosen, 1, chosen):
+                fb.dkv_splits = lambda *_, n=n_split: n
+                by_splits.setdefault(n_split, []).extend(
+                    median_ms(run, reps=3)[1])
+            fb.dkv_splits = lambda *_: 1
+            unsplit = run()
+        finally:
+            fb.dkv_splits = pick
     res = {}
     fb.flash_attention_bwd_ref(q, k, v, out, lse, do, causal=True,
                                window=window)             # warm: allocations
     plain_ms = cuda_ms(lambda: res.update(want=fb.flash_attention_bwd_ref(
         q, k, v, out, lse, do, causal=True, window=window)))
+    want = res.pop("want")
     err = max(float((a.float() - w.float()).abs().max())
-              for a, w in zip(got, res["want"]))
-    big = max(float(w.float().abs().max()) for w in res["want"])
-    bwd_ok = grads_close(got, res["want"], bwd_tol(torch.bfloat16))
-    del res
+              for a, w in zip(got, want))
+    big = max(float(w.float().abs().max()) for w in want)
+    btol = bwd_tol(torch.bfloat16)
+    bwd_ok = grads_close(got, want, btol)
+    names = ("dq", "dk", "dv")
+    close = lambda a, w: bool(torch.allclose(a.float(), w.float(),
+                                             atol=btol, rtol=btol))
+    for n, a, w in zip(names, got, want):
+        rel[n] = rel_err(a, w)
+        for c in PLANTED_SCALES:
+            planted[f"{n} x {c}"] = (rel_err(a * c, w), close(a * c, w))
+    # dk, dv with the second half of each GQA group's q heads left out:
+    # what the sum of the splits gives when one of two is dropped.
+    g = h // kh
+    half = do.clone()
+    half[:, [i for i in range(h) if i % g >= g // 2]] = 0
+    _, dk_half, dv_half = fb.flash_attention_bwd_ref(
+        q, k, v, out, lse, half, causal=True, window=window)
+    del half
+    for n, a, w in (("dk", dk_half, want[1]), ("dv", dv_half, want[2])):
+        planted[f"{n} without q heads {g // 2}-{g - 1} of each group"] = (
+            rel_err(a, w), close(a, w))
+    del dk_half, dv_half
+    rel_unsplit = None if unsplit is None else {
+        n: rel_err(a, w) for n, a, w in zip(names, unsplit, want)}
+    del want, unsplit
+    rel_ok = all(x <= TRAIN_REL_TOL for x in rel.values()) and all(
+        x <= TRAIN_REL_TOL for x in (rel_unsplit or {}).values())
+    caught = all(x > TRAIN_REL_TOL for x, _ in planted.values())
     lib_ms, _ = median_ms(library_attention_bwd(q, k, v, do, True, window),
                           reps=3)
     bnd, by, n_bytes, flops = flash_bwd_bound(b, h, kh, s, s, dh, 2, True,
                                               window)
     print(f"flash_attention_bwd {name} B={b} H={h} K={kh} S=T={s} dh={dh} "
           f"window={window} bf16 causal: kernel {kernel_ms:.3f} ms/call (of "
-          f"{[round(x, 3) for x in times]}; on the card {dev_ms:.3f}; 3 "
-          f"launches: delta, dq, dk/dv), plain {plain_ms:.2f} ms, library "
+          f"{[round(x, 3) for x in times]}; on the card {dev_ms:.3f}; "
+          f"{len(split)} kernels a call: {', '.join(split)}), plain "
+          f"{plain_ms:.2f} ms, library "
           f"{lib_ms:.3f} ms (SDPA backward), bound {bnd:.4f} ms ({by}; "
           f"{n_bytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP), max abs err "
           f"{err:.3g} (largest gradient {big:.3g}); dq, dk, dv within "
-          f"{bwd_tol(torch.bfloat16)} element by element: {bwd_ok}",
-          flush=True)
+          f"{btol} element by element: {bwd_ok}; two "
+          f"calls bit-equal: {repeat}; PERF.md row before the tensor-core "
+          f"route {EARLIER_MS['flash_attention_bwd ' + name + ' train']} ms;"
+          f" by kernel on the card (ms a call): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split.items()), flush=True)
+    print(f"flash_attention(_bwd) {name} training shape: relative error "
+          f"||a - w|| / ||w|| against the plain version (bar "
+          f"{TRAIN_REL_TOL}): "
+          + ", ".join(f"{k} {x:.3g}" for k, x in rel.items())
+          + "; planted faults (each must read above the bar): "
+          + ", ".join(f"{k} {x:.3g} (passes the element-by-element bar: "
+                      f"{c})" for k, (x, c) in planted.items()), flush=True)
+    if by_splits:
+        med = {n: sorted(x)[len(x) // 2] for n, x in by_splits.items()}
+        print(f"flash_attention_bwd {name}: dk/dv work of each kv tile in "
+              f"{chosen} blocks (the wrapper's choice) "
+              f"{med[chosen]:.3f} ms/call (readings "
+              f"{[round(x, 3) for x in by_splits[chosen]]}), in 1 block "
+              f"{med[1]:.3f} ms/call (readings "
+              f"{[round(x, 3) for x in by_splits[1]]}); unsplit relative "
+              f"errors " + ", ".join(f"{k} {x:.3g}" for k, x in
+                                     rel_unsplit.items()), flush=True)
+    earlier = EARLIER_MS.get(f"flash_attention with LSE {name} train")
     print(f"flash_attention with LSE {name} training shape: kernel "
-          f"{fwd['ms']:.3f} ms/launch, plain {fwd['plain_ms']:.2f} ms, "
+          f"{fwd['ms']:.3f} ms/launch"
+          + (f" (PERF.md row before the tensor-core route {earlier} ms)"
+             if earlier else "") + f", on the card {fwd['card_ms']:.3f} ms,"
+          f" plain {fwd['plain_ms']:.2f} ms, "
           f"library {fwd['library_ms']:.3f} ms (SDPA forward), bound "
           f"{fwd['bound_ms']:.4f} ms ({fwd['bound_by']}); output within "
           f"{tol} of the plain version: {out_ok} (max abs err "
           f"{out_err:.3g}); LSE rows within 1e-4: {lse_ok}", flush=True)
-    if not (bwd_ok and out_ok and lse_ok):
+    if not (bwd_ok and out_ok and lse_ok and repeat and rel_ok and caught):
         raise AssertionError(f"flash_attention (with LSE) or "
-                             f"flash_attention_bwd != plain at {name}")
+                             f"flash_attention_bwd != plain, or two "
+                             f"backward calls differ, or a relative error "
+                             f"above {TRAIN_REL_TOL} (or a planted fault "
+                             f"below it), at {name}")
     return {"ms": kernel_ms, "plain_ms": plain_ms, "max_abs_err": err,
             "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms,
             "card_ms": dev_ms, "forward": fwd}
+
+
+# S, T of the backward sweep: the first port's, then the edges of the
+# tensor-core route's 64-row tiles.
+BWD_LENGTHS = ((1, 1), (77, 300), (256, 256), (300, 77), (63, 65),
+               (64, 129), (129, 64), (1, 4096))
 
 
 def phase_flash_bwd(fa, fb) -> dict:
@@ -1642,7 +1812,7 @@ def phase_flash_bwd(fa, fb) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         for dh in (32, 64, 128, 256):
             for h, kh in ((4, 4), (32, 4), (10, 1)):
-                for s, t in ((1, 1), (77, 300), (256, 256), (300, 77)):
+                for s, t in BWD_LENGTHS:
                     for causal in (True, False):
                         for window in (0, 64):
                             lse_ok, same, err, ok = flash_bwd_case(
@@ -1668,8 +1838,9 @@ def phase_flash_bwd(fa, fb) -> dict:
     print(f"flash_attention_bwd sweep: {n_cases - n_bad}/{n_cases} cases "
           f"within tolerance (f32 {FLASH_BWD_TOL['float32']}, bf16 "
           f"{FLASH_BWD_TOL['bfloat16']}; dh 32/64/128/256 x (H, K) "
-          f"(4, 4)/(32, 4)/(10, 1) x S,T 1/1 77/300 256/256 300/77 x "
-          f"causal x window 0/64); worst f32 error {worst:.3g}", flush=True)
+          f"(4, 4)/(32, 4)/(10, 1) x S,T "
+          f"{' '.join(f'{a}/{b}' for a, b in BWD_LENGTHS)} x causal x "
+          f"window 0/64); worst f32 error {worst:.3g}", flush=True)
     if n_bad or n_lse_bad or n_changed:
         raise AssertionError(f"flash_attention_bwd: {n_bad} backward, "
                              f"{n_lse_bad} LSE, {n_changed} forward cases "
@@ -1812,8 +1983,9 @@ def phase_train(fa, fb, rs, ckpt_dir) -> dict:
     """recurrentgemma-2b at its full config trained through
     ``repro_torch.launch.train.main`` for TRAIN_STEPS steps, the three
     counters set to 0 just before and read just after; each must be
-    TRAIN_STEPS x its reckoned launches per step.  -> the run's output
-    and numbers."""
+    TRAIN_STEPS x its reckoned launches per step, every attention launch
+    on the tensor-core route, and no incoming gradient copied before the
+    backward.  -> the run's output and numbers."""
     import shutil as sh
     import numpy as np
     import torch
@@ -1834,11 +2006,17 @@ def phase_train(fa, fb, rs, ckpt_dir) -> dict:
     try:
         for f in fns.values():
             f.launches = 0
+            if hasattr(f, "launches_tc"):
+                f.launches_tc = 0
+        fb.FlashAttentionFn.do_copies = 0
         t0 = time.perf_counter()
         out = train.main(TRAIN_ARGS + ["--ckpt-dir", str(ckpt_dir)],
                          device="cuda")
         wall = time.perf_counter() - t0
         launches = {k: f.launches for k, f in fns.items()}
+        routes = {k: f.launches_tc for k, f in fns.items()
+                  if hasattr(f, "launches_tc")}
+        copies = fb.FlashAttentionFn.do_copies
     finally:
         for g, h in handlers.items():       # main() installed the trainer's
             signal.signal(g, h)
@@ -1871,10 +2049,19 @@ def phase_train(fa, fb, rs, ckpt_dir) -> dict:
           f"recompute); {n_local} x {mb} backward calls; {n_rglru} RG-LRU "
           f"blocks x {mb} x (2 forward + 1 backward), x {TRAIN_STEPS} "
           f"steps)", flush=True)
-    if not finite or out["step"] != TRAIN_STEPS or launches != want:
+    print(f"train {RG}: tensor-core route launches {routes} (every "
+          f"attention call bf16: {per_step['flash_attention']} and "
+          f"{per_step['flash_attention_bwd']} a step); incoming gradients "
+          f"copied before flash_attention_bwd: {copies} (none may be)",
+          flush=True)
+    if not finite or out["step"] != TRAIN_STEPS or launches != want \
+            or any(n != want[k] for k, n in routes.items()) or copies:
         raise AssertionError(f"training {RG} failed: step {out['step']}, "
-                             f"finite {finite}, launches {launches}")
-    return {"out": out, "launches": launches, "step_s": step_s, "mfu": mfu,
+                             f"finite {finite}, launches {launches}, "
+                             f"tensor-core route {routes}, copies of the "
+                             f"incoming gradient {copies}")
+    return {"out": out, "launches": launches, "routes": routes,
+            "step_s": step_s, "mfu": mfu,
             "peak_gib": peak,
             "save_s": [h["ckpt_s"] for h in hist if "ckpt_s" in h]}
 

@@ -3,9 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` into a shared library that :mod:`ctypes` loads — no PyTorch
 headers, so a build takes seconds.  Libraries go to ``kernels/_build/``
-(listed in ``.gitignore``) under a name keyed by a hash of the source and
-the flags, so an edited source is rebuilt at its next use and a stale
-library is never loaded.  Nothing is built when the package is imported:
+(listed in ``.gitignore``) under a name keyed by a hash of the source,
+every shared header ``csrc/*.cuh`` and the flags, so an edited source or
+header is rebuilt at its next use and a stale library is never loaded.  Nothing is built when the package is imported:
 the first launch builds, or :func:`build` builds every source at once.
 """
 
@@ -26,6 +26,13 @@ SOURCES = ("simstep", "mlstm_scan", "flash_attention", "decode_attention",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+# Sources that encode TMA tensor maps call the driver API.
+LIBS = {"flash_attention": ("-lcuda",), "flash_attention_bwd": ("-lcuda",)}
+
+
+def flags(name: str) -> tuple:
+    """The nvcc flags of ``csrc/<name>.cu``, libraries included."""
+    return NVCC_FLAGS + LIBS.get(name, ())
 
 
 def _nvcc() -> str:
@@ -38,9 +45,12 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu`` is (or will be) built."""
+    """Where the library of ``csrc/<name>.cu`` is (or will be) built: keyed
+    by the source, every ``csrc/*.cuh`` and the flags."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -55,7 +65,14 @@ def build(names=SOURCES) -> dict:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        nvcc = _nvcc()
+        # The driver library to link against: the toolkit's stub (the
+        # driver's own libcuda.so.1 is loaded at run time).
+        stubs = Path(nvcc).resolve().parent.parent / "lib64" / "stubs"
+        link = ["-L", str(stubs)] if LIBS.get(name) and stubs.is_dir() \
+            else []
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu"),
+               *link, *LIBS.get(name, ())]
         jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),
                       tmp, out)

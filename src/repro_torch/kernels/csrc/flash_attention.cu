@@ -1,4 +1,4 @@
-// Hand-written Hopper (sm_90a) kernel for forward flash attention.
+// Hand-written Hopper (sm_90a) kernels for forward flash attention.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::flash_attention,
 // which walks the kv blocks of one (batch, q head, q block) output tile
@@ -8,58 +8,71 @@
 //
 //   s_ij = (q_i . k_j) * scale,  masked to -1e30 where j >= T, and under
 //          `causal` where j > i, and with a `window` where j <= i - window
-//   o_i  = sum_j softmax_j(s_ij) v_j,   f32 throughout, written in q's type
+//   o_i  = sum_j softmax_j(s_ij) v_j,   written in q's type
 //
 // Layout: q and o are [B, H, S, dh], k and v [B, K, T, dh], each given by
 // its three outer strides in elements (the head dim is contiguous), so the
 // model passes its [B, S, H, dh] / [B, T, K, dh] tensors as transposed
-// views without a copy.  f32 or bf16 inputs.
-//
-// What bounds it on this card: at the serving shape (B=8, H=32, K=4,
-// S=T=256, dh=128, bf16, causal) the bytes are ~37.7 MB (q, o 16.8 MB
-// each, k, v 2.1 MB each), 0.0113 ms at 3.35 TB/s, above the ~4.3 GFLOP
-// of the causal products on the tensor cores (0.0043 ms).  This first
-// kernel does the products on the f32 pipes (no tensor cores), so the
-// operations, not the bytes, hold it back: it is a correct baseline, and
-// wgmma tiles fed by TMA are the next step.
-//
-// What the design does: one block of 256 threads per (q tile of 64 rows,
-// q head, batch); a loop over kv tiles of 64 rows takes the place of the
-// TPU's sequential grid axis.  The q tile is staged once in shared memory
-// as f32; each kv tile is staged as f32 (k rows padded to dh + 1 floats,
-// so the 16 threads reading 16 different k rows at one column hit 16
-// banks).  Thread (ty, tx) of a 16 x 16 grid owns query rows ty + 16 r
-// (r < 4): it computes their scores against keys tx + 16 c (c < 4), keeps
-// their running max and denominator in registers (replicated across the
-// 16 threads of the half-warp that share the rows, which reduce by
-// shuffles), and accumulates output columns tx + 16 c (c < dh / 16).  The
-// probabilities go through shared memory from the score layout to the
-// P.V layout; only the half-warp that owns a row reads it, so a warp
-// barrier suffices there.  A kv tile wholly above the diagonal or wholly
-// left of the window is never visited (the TPU kernel's block test,
-// flash_attention.py:51-56, on this kernel's tiles).  Ragged S and T are
-// masked here, not asserted: rows past S are never stored, keys past T
-// never weigh.  A row that no key may see gets zeros (the TPU kernel
-// returns a mean of masked values there, the plain version NaN).
+// views without a copy.  Two routes, chosen by the inputs' type before the
+// launch: bf16 inputs (every main path) run the tensor-core kernel, f32
+// inputs (the parity sweeps) the f32 kernel.
 //
 // Training also asks for the softmax's log-sum-exp rows, lse_i = m_i +
 // log(l_i) in the scaled-score units, which the backward kernels
 // (flash_attention_bwd.cu) recompute the probabilities from.  The block
 // already holds m and l of its rows, so it writes them when `lse` is not
 // NULL ([B, H, S] f32, contiguous); a row that no key may see gets +inf,
-// so every probability and gradient of it is 0.  Serving passes NULL.
+// so every probability and gradient of it is 0.  Serving passes NULL, and
+// the output is the same bit for bit either way (one kernel).
 //
-// Numerics: f32 scores and accumulation; the products accumulate with
-// explicit fmaf (the port builds every source with -fmad=false, which
-// only stops the compiler from contracting a separate multiply and add);
-// softmax in the TPU kernel's order: m' = max(m, max_j s), alpha =
-// exp(m - m'), l' = alpha l + sum p, o = acc / max(l, 1e-30).
+// What bounds it on this card: at yi-6b's prefill shape (B=8, H=32, K=4,
+// S=T=256, dh=128, bf16, causal) the bytes are ~37.7 MB (q, o 16.8 MB each,
+// k, v 2.1 MB each), 0.0113 ms at 3.35 TB/s, above the ~4.3 GFLOP of the
+// causal products on the tensor cores (0.0043 ms); at recurrentgemma-2b's
+// training shape (B=1, H=10, K=1, S=T=4096, dh=256, window 2048) the 64.4
+// GFLOP of the visible pairs (0.065 ms) bound it.
+//
+// The bf16 route (flash_attention_tc_kernel) answers with the tensor cores
+// and the TMA unit:
+// * One block per (q tile of 64 rows, q head, batch): one consumer
+//   warpgroup owns the 64 rows, a producer warp feeds it.  The producer
+//   brings the q tile once and then each kv tile's k and v through a ring
+//   of 2 stages in shared memory (cp.async.bulk.tensor, 128- or 64-byte
+//   swizzle, one mbarrier per tile and stage that counts the bytes, and one
+//   per stage that the consumer arrives on when it has read the stage).
+// * s = q k^T is wgmma.mma_async m64n64k16 with both operands in shared
+//   memory (bf16 x bf16 -> f32, exact products).  The online softmax runs on
+//   the accumulator in registers in the f32 kernel's order (m' = max(m,
+//   max_j s), alpha = exp(m - m'), l' = alpha l + sum p); the 4 threads of
+//   a quad that share a row reduce its max by shuffles, and l at the end.
+// * p is rounded to bf16 in registers and is the A operand of o += p v
+//   (wgmma m64n{dh}k16, v read MN-major from shared memory), as the JAX
+//   model rounds its probabilities to bf16 before p.v.
+// * o = acc / max(l, 1e-30) is stored in bf16 from the accumulator.
+// * A kv tile wholly above the diagonal or wholly left of the window is
+//   never visited (the TPU kernel's block test, flash_attention.py:51-56,
+//   on these tiles); tiles inside the mask skip the per-element test.
+//   Ragged S and T: TMA fills rows past S or T with zeros, and the mask,
+//   not the zeros, decides which keys weigh; rows past S are never stored.
+//   A row that no key may see gets zeros (the TPU kernel returns a mean of
+//   masked values there, the plain version NaN).
+// * Shared memory: q 64 dh + 2 x (k + v) 64 dh bf16 (160 KB at dh 256, one
+//   block an SM; 80 KB at dh 128, two).  Registers: the o accumulator is
+//   dh / 2 floats a thread (128 at dh 256), s 32, p 16.
+//
+// The f32 route (flash_attention_kernel) is the first port's kernel: one
+// block of 256 threads per (q tile of 64 rows, q head, batch); the q tile
+// and each kv tile staged in shared memory as f32 (k rows padded to dh + 1
+// floats), thread (ty, tx) of a 16 x 16 grid owning query rows ty + 16 r
+// and keys / output columns tx + 16 c; products with explicit fmaf on the
+// f32 pipes (the port builds every source with -fmad=false), since TF32
+// tensor cores would not keep f32's digits; the probabilities go through
+// shared memory from the score layout to the p.v layout.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
+
 
 constexpr int kBQ = 64;          // query rows per block
 constexpr int kBK = 64;          // keys per kv tile
@@ -71,18 +84,11 @@ constexpr int kCK = kBK / kTX;   // score columns per thread
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
 }
 
 struct Strides {
@@ -285,16 +291,259 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
   }
 }
 
+
+// ------------------------------------------------------------ bf16 route
+
+__device__ __forceinline__ bool visible(int i, int j, int T_len, int causal,
+                                        int window) {
+  return j < T_len && (!causal || (j <= i && (!window || j > i - window)));
+}
+
+template <int DH>
+struct FwdTC {
+  using Tl = hopper::Tile<DH>;
+  static constexpr int kStages = 2;
+  static constexpr int kThreads = 160;   // a consumer warpgroup + a producer
+  static constexpr int kK = Tl::BYTES;   // q tile at 0
+  static constexpr int kV = kK + kStages * Tl::BYTES;
+  static constexpr int kBar = kV + kStages * Tl::BYTES;
+  static constexpr int kSmem = kBar + 8 * (1 + 3 * kStages) + 1024;
+  static constexpr int kMinBlocks = DH == 256 ? 1 : 2;
+};
+
+template <int DH>
+__global__ void __launch_bounds__(FwdTC<DH>::kThreads, FwdTC<DH>::kMinBlocks)
+    flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              __nv_bfloat16* __restrict__ o,
+                              float* __restrict__ lse, int g, int S,
+                              int T_len, Strides so, float scale, int causal,
+                              int window) {
+  using L = FwdTC<DH>;
+  using Tl = hopper::Tile<DH>;
+  extern __shared__ char smem_raw[];
+  char* smem = reinterpret_cast<char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + L::kStages;
+  uint64_t* empty = v_full + L::kStages;
+
+  const int q0 = blockIdx.x * 64;
+  const int hh = blockIdx.y;
+  const int bb = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // The kv tiles this q tile sees: causal stops at its last row's
+  // diagonal; a window starts at the tile holding its first row's
+  // earliest key.
+  int k_begin = 0, k_end = T_len;
+  if (causal) {
+    k_end = min(T_len, q0 + 64);
+    if (window) k_begin = max(0, q0 - window + 1) / 64 * 64;
+  }
+  const int n_tiles = (k_end - k_begin + 63) / 64;
+
+  if (threadIdx.x == 0) {
+    hopper::bar_init(q_full, 1);
+    for (int s = 0; s < L::kStages; ++s) {
+      hopper::bar_init(k_full + s, 1);
+      hopper::bar_init(v_full + s, 1);
+      hopper::bar_init(empty + s, 4);    // one arrival per consumer warp
+    }
+    hopper::bar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 4) {                       // the producer
+    if (lane == 0) {
+      hopper::bar_expect(q_full, Tl::BYTES);
+      Tl::load(smem, &tq, q_full, q0, hh, bb);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % L::kStages;
+        if (it >= L::kStages)
+          hopper::bar_wait(empty + st, (it / L::kStages - 1) & 1);
+        const int k0 = k_begin + it * 64;
+        hopper::bar_expect(k_full + st, Tl::BYTES);
+        Tl::load(smem + L::kK + st * Tl::BYTES, &tk, k_full + st, k0,
+                 hh / g, bb);
+        hopper::bar_expect(v_full + st, Tl::BYTES);
+        Tl::load(smem + L::kV + st * Tl::BYTES, &tv, v_full + st, k0,
+                 hh / g, bb);
+      }
+    }
+    return;
+  }
+
+  // The consumer warpgroup: rows r0 + 8 i of the tile, r0 = 16 warp +
+  // lane / 4; columns 8 j + 2 (lane % 4) + c of each 8-column group.
+  const int t4 = lane % 4;
+  const int row0 = q0 + warp * 16 + lane / 4;
+  float acc[DH / 2], s[32];
+#pragma unroll
+  for (int e = 0; e < DH / 2; ++e) acc[e] = 0.0f;
+#pragma unroll
+  for (int e = 0; e < 32; ++e) s[e] = 0.0f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+  hopper::bar_wait(q_full, 0);
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % L::kStages;
+    const uint32_t ph = (it / L::kStages) & 1;
+    const int k0 = k_begin + it * 64;
+    const char* Ks = smem + L::kK + st * Tl::BYTES;
+    const char* Vs = smem + L::kV + st * Tl::BYTES;
+
+    hopper::bar_wait(k_full + st, ph);
+    hopper::fence_regs(s);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < DH / 16; ++k)
+      hopper::wgmma_ss<0>(s, Tl::kmajor(smem, k), Tl::kmajor(Ks, k), k > 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait();
+    hopper::fence_regs(s);
+
+    // A tile wholly inside the mask needs no per-element test.
+    const bool inside =
+        k0 + 64 <= T_len &&
+        (!causal || (k0 + 63 <= q0 && (!window || k0 > q0 + 63 - window)));
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int iq = row0 + 8 * i;
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int jk = k0 + 8 * j + 2 * t4 + c;
+          const bool ok = inside || visible(iq, jk, T_len, causal, window);
+          const float x = ok ? s[4 * j + 2 * i + c] * scale : kNegInf;
+          s[4 * j + 2 * i + c] = x;
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[i], mx);
+      alpha[i] = expf(m[i] - m_new);
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int jk = k0 + 8 * j + 2 * t4 + c;
+          const bool ok = inside || visible(iq, jk, T_len, causal, window);
+          const float p = ok ? expf(s[4 * j + 2 * i + c] - m_new) : 0.0f;
+          s[4 * j + 2 * i + c] = p;
+          sum += p;
+        }
+      l[i] = alpha[i] * l[i] + sum;      // this thread's part of the row
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        acc[4 * j + 2 * i] *= alpha[i];
+        acc[4 * j + 2 * i + 1] *= alpha[i];
+      }
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) hopper::a_fragment(s, k, pa[k]);
+
+    hopper::bar_wait(v_full + st, ph);
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      hopper::wgmma_rs<1>(acc, pa[k], Tl::mnmajor(Vs, k, 0), 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait();
+    hopper::fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) hopper::bar_arrive(empty + st);
+  }
+
+  __nv_bfloat16* ob = o + bb * so.b + hh * so.h;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float lt = l[i];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const int iq = row0 + 8 * i;
+    if (iq >= S) continue;
+    const float den = fmaxf(lt, 1e-30f);
+    __nv_bfloat16* orow = ob + iq * so.s + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j)
+      *reinterpret_cast<uint32_t*>(orow + 8 * j) = hopper::pack_bf16(
+          acc[4 * j + 2 * i] / den, acc[4 * j + 2 * i + 1] / den);
+    if (lse != nullptr && t4 == 0) {
+      lse[(static_cast<long long>(bb) * gridDim.y + hh) * S + iq] =
+          lt > 0.0f ? m[i] + logf(lt) : __int_as_float(0x7f800000);
+    }
+  }
+}
+
+template <int DH>
+int launch_tc(const void* q, const void* k, const void* v, void* o,
+              float* lse, int B, int H, int KH, int S, int T_len,
+              const long long* st, float scale, int causal, int window,
+              void* stream) {
+  CUtensorMap tq, tk, tv;
+  int err = hopper::make_map<DH>(&tq, q, B, H, S, st);
+  if (err == 0) err = hopper::make_map<DH>(&tk, k, B, KH, T_len, st + 3);
+  if (err == 0) err = hopper::make_map<DH>(&tv, v, B, KH, T_len, st + 6);
+  if (err != 0) return err;
+  constexpr int smem = FwdTC<DH>::kSmem;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_attention_tc_kernel<DH>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const Strides so{st[9], st[10], st[11]};
+  flash_attention_tc_kernel<DH>
+      <<<dim3((S + 63) / 64, H, B), FwdTC<DH>::kThreads, smem,
+         static_cast<cudaStream_t>(stream)>>>(
+          tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, H / KH, S, T_len,
+          so, scale, causal, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch_tc(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int H, int KH, int S, int T_len, int dh,
+                const long long* st, float scale, int causal, int window,
+                void* stream) {
+  switch (dh) {
+    case 32:
+      return launch_tc<32>(q, k, v, o, lse, B, H, KH, S, T_len, st, scale,
+                           causal, window, stream);
+    case 64:
+      return launch_tc<64>(q, k, v, o, lse, B, H, KH, S, T_len, st, scale,
+                           causal, window, stream);
+    case 128:
+      return launch_tc<128>(q, k, v, o, lse, B, H, KH, S, T_len, st, scale,
+                            causal, window, stream);
+    case 256:
+      return launch_tc<256>(q, k, v, o, lse, B, H, KH, S, T_len, st, scale,
+                            causal, window, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // o = attention(q, k, v) on `stream`.  q, o: [B, H, S, dh]; k, v:
-// [B, KH, T, dh], H % KH == 0; f32 (bf16 = 0) or bf16 (bf16 = 1), all of
-// one type.  `strides` holds 12 element strides: (batch, head, row) of q,
-// k, v and o in that order; the head dim is contiguous.  dh is 32, 64, 128
-// or 256.  `lse` is NULL or a contiguous [B, H, S] f32 output of the
-// rows' log-sum-exp.  Returns the cudaError_t of the launch (0 = success).
+// [B, KH, T, dh], H % KH == 0; f32 (bf16 = 0: the f32 kernel) or bf16
+// (bf16 = 1: the tensor-core kernel), all of one type.  `strides` holds 12
+// element strides: (batch, head, row) of q, k, v and o in that order; the
+// head dim is contiguous.  dh is 32, 64, 128 or 256.  For bf16 the bases
+// of q, k, v and their strides are multiples of 16 bytes (TMA).  `lse` is
+// NULL or a contiguous [B, H, S] f32 output of the rows' log-sum-exp.
+// Returns 0, a cudaError_t, or a tensor map's CUresult + 1000.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, float* lse, int B, int H, int KH, int S,
                            int T_len, int dh, const long long* strides,
@@ -303,15 +552,15 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (bf16) {
-    return dispatch<__nv_bfloat16>(q, k, v, o, lse, B, H, KH, S, T_len, dh,
-                                   strides, scale, causal, window, stream);
+    return dispatch_tc(q, k, v, o, lse, B, H, KH, S, T_len, dh, strides,
+                       scale, causal, window, stream);
   }
   return dispatch<float>(q, k, v, o, lse, B, H, KH, S, T_len, dh, strides,
                          scale, causal, window, stream);
 }
 
 const char* flash_attention_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return hopper::error_string(code);
 }
 
 }  // extern "C"

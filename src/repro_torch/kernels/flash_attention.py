@@ -2,16 +2,20 @@
 a prefill.
 
 Replaces the TPU kernel ``repro/kernels/flash_attention.py::flash_attention``
-with a CUDA kernel written for Hopper (``csrc/flash_attention.cu``; its
-header says what bounds it and how the design answers that).  The
+with CUDA kernels written for Hopper (``csrc/flash_attention.cu``; its
+header says what bounds them and how the design answers that).  The
 semantics are the plain PyTorch version :func:`flash_attention_ref`
 (``kernels/ref.py``).
 
-:func:`flash_attention` launches the kernel on CUDA tensors, for every
-``S, T >= 1`` (ragged ones included), and raises on anything the kernel
-does not take; it never falls back.  On CPU tensors it runs
+:func:`flash_attention` launches a kernel on CUDA tensors, for every
+``S, T >= 1`` (ragged ones included), and raises on anything the kernels
+do not take; it never falls back.  The route is the inputs' type: bf16
+runs the tensor-core kernel (``wgmma`` products fed by TMA; the
+probabilities rounded to bf16 before p.v, as the JAX model rounds them),
+f32 the f32 kernel (tensor cores would mean TF32).  On CPU tensors it runs
 :func:`flash_attention_ref`.  ``flash_attention.launches`` counts the
-kernel launches.  With ``return_lse=True`` it also returns the rows'
+kernel launches and ``flash_attention.launches_tc`` those of the
+tensor-core route.  With ``return_lse=True`` it also returns the rows'
 log-sum-exp (the training forward's, which the backward kernels take);
 the CPU computes it with :func:`flash_attention_lse_ref`.
 """
@@ -72,10 +76,42 @@ def _check(q, k, v) -> None:
                          f"k {tuple(k.shape)}")
 
 
+def tma_strides(x, name) -> list:
+    """The three outer element strides of a bf16 [B, heads, rows, dh]
+    operand that the tensor-core kernels read through TMA, which needs its
+    base and strides at multiples of 16 bytes; a dimension of size 1 gets
+    the dense stride (its index is always 0).  Raises on the rest."""
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name} must start at a multiple of 16 bytes for "
+                         f"the tensor-core kernels (TMA)")
+    out, dense = [], x.shape[3]
+    for i in (2, 1, 0):
+        if x.shape[i] == 1:
+            out.append(dense)
+        elif (x.stride(i) * x.element_size()) % 16:
+            raise ValueError(f"{name}'s stride {x.stride(i)} of dim {i} is "
+                             f"not a multiple of 16 bytes, which the "
+                             f"tensor-core kernels (TMA) need")
+        else:
+            out.append(x.stride(i))
+        dense *= x.shape[i]
+    return out[::-1]
+
+
+def tma_ok(x) -> bool:
+    """Whether :func:`tma_strides` takes ``x``."""
+    try:
+        tma_strides(x, "x")
+    except ValueError:
+        return False
+    return True
+
+
 def flash_attention(q, k, v, *, causal=True, window=0, return_lse=False):
     """q: [B,H,S,dh]; k,v: [B,K,T,dh] (GQA: H % K == 0) -> [B,H,S,dh] in
     q's dtype, laid out like q.  f32 or bf16; any strides with the head
-    dim contiguous (the model passes transposed views).  With
+    dim contiguous (the model passes transposed views), and for bf16 the
+    bases and strides of q, k, v at multiples of 16 bytes.  With
     ``return_lse`` -> (out, lse [B,H,S] f32): each row's log-sum-exp of
     its scaled, masked scores, +inf for a row that no key may see.
 
@@ -104,8 +140,13 @@ def flash_attention(q, k, v, *, causal=True, window=0, return_lse=False):
         out = torch.empty(q.shape, dtype=q.dtype, device=dev)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=dev) \
         if return_lse else None
-    strides = (ctypes.c_longlong * 12)(*(x.stride(i) for x in (q, k, v, out)
-                                         for i in range(3)))
+    if q.dtype == torch.bfloat16:
+        outer = [tma_strides(x, name) for x, name in ((q, "q"), (k, "k"),
+                                                       (v, "v"))]
+    else:
+        outer = [[x.stride(i) for i in range(3)] for x in (q, k, v)]
+    outer.append([out.stride(i) for i in range(3)])
+    strides = (ctypes.c_longlong * 12)(*(st for x in outer for st in x))
     index = dev.index if dev.index is not None else \
         torch.cuda.current_device()
     lib = _lib()
@@ -119,7 +160,9 @@ def flash_attention(q, k, v, *, causal=True, window=0, return_lse=False):
         raise RuntimeError("flash_attention kernel launch failed: "
                            + lib.flash_attention_error_string(err).decode())
     flash_attention.launches += 1
+    flash_attention.launches_tc += q.dtype == torch.bfloat16
     return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
+flash_attention.launches_tc = 0

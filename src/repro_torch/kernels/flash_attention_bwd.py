@@ -11,15 +11,21 @@ the design answers that).  The semantics are the plain PyTorch version
 
 :func:`flash_attention_bwd` launches the kernels on CUDA tensors, for
 every ``S, T >= 1`` (ragged ones included), and raises on anything they
-do not take; it never falls back.  On CPU tensors it runs
-:func:`flash_attention_bwd_ref`.  ``flash_attention_bwd.launches`` counts
-the calls that launched the kernels (each launches a delta, a dq and a
-dk/dv kernel).
+do not take; it never falls back.  The route is the inputs' type: bf16
+runs the tensor-core kernels (``wgmma`` products fed by TMA; p rounded to
+bf16 before dv, ds before dq and dk), f32 the f32 kernels.  On CPU tensors
+it runs :func:`flash_attention_bwd_ref`.  ``flash_attention_bwd.launches``
+counts the calls that launched the kernels (each launches a delta, a dq
+and a dk/dv kernel, and on the bf16 route, when the dk/dv blocks split
+their work, a pass that sums the splits), ``flash_attention_bwd.
+launches_tc`` those of the tensor-core route.
 
 :class:`FlashAttentionFn` runs the forward kernel with its log-sum-exp
 rows and saves q, k, v, the output and the rows; its backward is
 :func:`flash_attention_bwd`, inside the profiler range
-``repro_torch.flash_attention_bwd``.  On the CPU the same Function runs
+``repro_torch.flash_attention_bwd``.  An incoming gradient whose head dim
+is not contiguous, or (on CUDA) whose base or strides break the TMA rule,
+is copied first; ``FlashAttentionFn.do_copies`` counts those copies.  On the CPU the same Function runs
 the plain forward and the plain backward, so the CPU tests hold the plain
 backward, not PyTorch's autograd of the plain forward, against JAX.
 """
@@ -34,7 +40,7 @@ from torch.profiler import record_function
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import HEAD_DIMS, _DTYPES, \
-    _check, flash_attention
+    _check, flash_attention, tma_ok, tma_strides
 from repro_torch.kernels.ref import flash_attention_bwd_ref
 
 __all__ = ["flash_attention_bwd", "flash_attention_bwd_ref",
@@ -45,7 +51,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention_bwd")
     fn = lib.flash_attention_bwd_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
                        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float]
                        + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -81,11 +87,20 @@ def _empty_like(x) -> torch.Tensor:
                                                   device=x.device)
 
 
+def dkv_splits(b, kh, t, sms) -> int:
+    """How many blocks share each kv tile's dk/dv work on the bf16 route:
+    enough to put a block on each of ``sms`` SMs when the T / 64 x K x B
+    tiles are fewer (at most 5), else 1."""
+    blocks = -(-t // 64) * kh * b
+    return max(1, min(5, sms // blocks))
+
+
 def flash_attention_bwd(q, k, v, out, lse, do, *, causal=True, window=0):
     """q, out, do: [B,H,S,dh]; k, v: [B,K,T,dh] (GQA: H % K == 0); lse:
     [B,H,S] f32, the forward's -> (dq [B,H,S,dh] in q's dtype, laid out
     like q; dk, dv [B,K,T,dh] in k's dtype, laid out like k, v).  f32 or
-    bf16; any strides with the head dim contiguous.
+    bf16; any strides with the head dim contiguous, and for bf16 the bases
+    and strides of q, k, v and do at multiples of 16 bytes.
 
     CUDA tensors launch the kernels (or raise); CPU tensors run
     :func:`flash_attention_bwd_ref`."""
@@ -109,16 +124,28 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal=True, window=0):
         raise ValueError("lse must be contiguous")
     dq, dk, dv = _empty_like(q), _empty_like(k), _empty_like(v)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=dev)
-    strides = (ctypes.c_longlong * 24)(
-        *(x.stride(i) for x in (q, k, v, out, do, dq, dk, dv)
-          for i in range(3)))
+    tc = q.dtype == torch.bfloat16
+    outer = [[x.stride(i) for i in range(3)] for x in
+             (q, k, v, out, do, dq, dk, dv)]
+    part, splits = None, 1
+    if tc:
+        for i, name in ((0, "q"), (1, "k"), (2, "v"), (4, "do")):
+            outer[i] = tma_strides((q, k, v, out, do)[i], name)
+        splits = dkv_splits(b, kh, t, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+        if splits > 1:
+            part = torch.empty((2, splits, b, kh, t, dh),
+                               dtype=torch.float32, device=dev)
+    strides = (ctypes.c_longlong * 24)(*(st for x in outer for st in x))
     index = dev.index if dev.index is not None else \
         torch.cuda.current_device()
     lib = _lib()
     err = lib.flash_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), b, h, kh, s, t, dh, strides,
+        dk.data_ptr(), dv.data_ptr(),
+        None if part is None else part.data_ptr(), splits, b, h, kh, s, t,
+        dh, strides,
         float(1.0 / np.sqrt(dh)), int(bool(causal)), int(window),
         _DTYPES[q.dtype], index, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
@@ -126,10 +153,12 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal=True, window=0):
                            + lib.flash_attention_bwd_error_string(err)
                            .decode())
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.launches_tc += tc
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_tc = 0
 
 
 class FlashAttentionFn(torch.autograd.Function):
@@ -149,10 +178,14 @@ class FlashAttentionFn(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
         with record_function("repro_torch.flash_attention_bwd"):
-            if do.stride(3) != 1:
+            if do.stride(3) != 1 or (do.is_cuda and not tma_ok(do)):
                 do = do.contiguous()
+                FlashAttentionFn.do_copies += 1
             dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
                                              do.to(q.dtype),
                                              causal=ctx.causal,
                                              window=ctx.window)
         return dq, dk, dv, None, None
+
+
+FlashAttentionFn.do_copies = 0

@@ -171,3 +171,43 @@ def test_serving_path_does_not_record_a_graph():
     assert torch.equal(out, flash_attention_ref(q, k, v, causal=True))
     assert torch.equal(FlashAttentionFn.apply(*leaves, True, 0).detach(),
                        out)
+
+
+def _model_layout_grads(q, k, v, loss):
+    """dq, dk, dv through ops.flash_attention with the model's layout:
+    [B,S,H,dh] leaves passed transposed, the output transposed back and
+    flattened to [B,S,H*dh] before ``loss``."""
+    leaves = [x.transpose(1, 2).contiguous().requires_grad_()
+              for x in (q, k, v)]
+    out = ops.flash_attention(*(x.transpose(1, 2) for x in leaves),
+                              causal=True, window=0)
+    b, h, s, dh = out.shape
+    loss(out.transpose(1, 2).reshape(b, s, h * dh)).backward()
+    return [x.grad for x in leaves]
+
+
+def test_model_layout_gradient_reaches_the_backward_uncopied():
+    """The gradient a model hands FlashAttentionFn (the output flattened,
+    then projected) has a contiguous head dim: no copy is made."""
+    _, (q, k, v, _) = _inputs(1, 4, 2, 32, 32, 16, "float32", 5)
+    w = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (4 * 16, 8)).astype(np.float32))
+    FlashAttentionFn.do_copies = 0
+    grads = _model_layout_grads(q, k, v, lambda o: (o @ w).square().sum())
+    assert FlashAttentionFn.do_copies == 0
+    assert all(torch.isfinite(g).all() for g in grads)
+
+
+def test_strided_incoming_gradient_is_copied_and_counted():
+    """A gradient with a strided head dim (``sum``'s expanded ones) is
+    copied once, counted, and gives the gradients of the same values
+    materialised."""
+    _, (q, k, v, _) = _inputs(1, 4, 2, 32, 32, 16, "float32", 7)
+    FlashAttentionFn.do_copies = 0
+    got = _model_layout_grads(q, k, v, lambda o: o.sum())
+    assert FlashAttentionFn.do_copies == 1
+    want = _model_layout_grads(q, k, v, lambda o: (o * torch.ones_like(
+        o)).sum())
+    assert FlashAttentionFn.do_copies == 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
