@@ -9,17 +9,22 @@ Phases, each of which fails the script (non-zero exit, no result line):
 
 1. Print the card (``nvidia-smi``) and build every CUDA kernel from
    ``src/repro_torch/kernels/csrc`` with ``nvcc`` (one process per
-   source, all started together).
+   source, all started together); ``fused_chunk`` must keep no stack
+   frame (``ptxas -v``).
 2. Hold the ``fused_chunk`` kernel against its plain PyTorch version on
    the card, bit for bit in every state leaf: each policy on the fig1 and
    Bench-1 programs over a small grid, chunk 1 against chunk 128, and one
    launch at the main path's shapes (timed, with its bound).
-3. Drive the main path at full size through ``sweep``: the paper's fig1
-   calibration for 60,000 us, one sweep per policy (2,120 cells), with
-   the kernel launch counters set to 0 just before and read just after.
-   Every cell must retire events, the n_cores=8 summaries must be
-   finite, and the n_cores=8 (seed 0) cells must equal the JAX package's
-   final state bit for bit (``REFERENCE_DIGESTS``).
+3. Drive the main path at full size through ``sweep``'s two parts,
+   ``init_sweep`` and ``simulate``: the paper's fig1 calibration for
+   60,000 us, one sweep per policy (2,120 cells), with the kernel launch
+   counters set to 0 just before and read just after.  Every cell must
+   retire events, the n_cores=8 summaries must be finite, and the
+   n_cores=8 (seed 0) cells must equal the JAX package's final state bit
+   for bit (``REFERENCE_DIGESTS``).  Each sweep's wall time split into
+   ``init_sweep`` and ``simulate``, its events/s, its launches past the
+   last live chunk, and ``simulate``'s time on the card in the kernel
+   (profiler) and outside it.
 4. Hold the ``mlstm_scan`` kernel against its plain PyTorch version on
    the card: f32 and bf16 inputs, with and without a carry, S in {1, 7,
    256}, dh in {32, 192}; h, C, n and m within the JAX package's kernel
@@ -43,10 +48,15 @@ Phases, each of which fails the script (non-zero exit, no result line):
    the f32 kernel; then time it at the yi-6b and recurrentgemma-2b
    prefill shapes beside its bound, the plain version, PyTorch's fused
    attention and the f32-pipe kernel's earlier time.
-8. The same for ``decode_attention`` (per-row lengths 1, 257, 511, T and
-   a mix, T of 512 and 300; and ring starts: a local block's ring of 17
-   slots with window 16 at positions 16, 17, 40 and a mix), timed at the
-   yi-6b and recurrentgemma-2b decode shapes.
+8. The same for ``decode_attention``, each case through the wrapper's
+   split over the cache and through one forced split (per-row lengths
+   1, 257, 511, T, a mix, 0 and the split edges 15, 16, 17, 63, 64, 65;
+   T of 512 and 300; runs that wrap at T inside a split; a local block's
+   ring of 17 slots with window 16 at positions 16, 17, 40 and a mix;
+   recurrentgemma-2b's heads on its ring of 2,049 slots), rows of length
+   0 zeros; timed at the yi-6b and recurrentgemma-2b decode shapes (at
+   least one block per SM, two calls bit-equal), the split against the
+   unsplit kernel in turns.
 9. yi-6b at its full config (6,061,035,520 parameters, f32 at rest, bf16
    compute): a prefill of 8 x 256 tokens and 8 decode steps through the
    kernels and through the plain versions, logits within 3 % of the
@@ -57,7 +67,8 @@ Phases, each of which fails the script (non-zero exit, no result line):
     model at a rate that puts half of the slot on prefill, TTFT SLO 4 x
     the mean prompt's prefill, with both attention counters set to 0
     just before and read just after (every ``flash_attention`` launch on
-    the tensor-core route); then the
+    the tensor-core route, some ``decode_attention`` calls split over the
+    cache); then the
     ``python -m repro_torch.launch.serve --arch yi-6b`` CLI once at that
     rate, in its own process.  The yi-6b weights are freed.
 11. Hold ``rglru_scan`` against its plain version on the card, bit for
@@ -76,7 +87,8 @@ Phases, each of which fails the script (non-zero exit, no result line):
     (0.5 / (4.667 prefill chunks + 80 decode steps)), TTFT SLO 4 x the
     mean prompt's prefill, with the ``rglru_scan``, ``flash_attention``
     and ``decode_attention`` counters set to 0 just before and read just
-    after (every ``flash_attention`` launch on the tensor-core route).
+    after (every ``flash_attention`` launch on the tensor-core route, some
+    ``decode_attention`` calls split over the cache).
 14. Hold ``flash_attention``'s log-sum-exp rows (the training forward's
     second output) and ``flash_attention_bwd`` against their plain
     versions on the card: f32 and bf16, head dims 32, 64, 128 and 256,
@@ -99,8 +111,8 @@ Phases, each of which fails the script (non-zero exit, no result line):
     none.
 15. Hold the ``rglru_scan`` backward (the kernel over reversed inputs)
     against the plain reverse loop, bit for bit in f32 (da, dx, dh0):
-    with and without h0, S in {1, 7, 4096}, R in {2560, 100}; time it at
-    the training shape.
+    with and without h0, S in {1, 7, 4096}, R in {2560, 100}; time it,
+    and the forward against its plain version, at the training shape.
 16. One loss-and-grad at recurrentgemma-2b's full widths cut to 3 layers,
     one [1, 4096] microbatch, kernel path against plain path: the loss
     within 0.5 %, each block kind's gradients within 3 % of their largest
@@ -304,6 +316,21 @@ def instantiation(line: str) -> str:
         + ")"
 
 
+def stack_frames(build, name) -> dict:
+    """Each kernel instantiation's stack frame in bytes, from ptxas's
+    report in the build log of ``csrc/<name>.cu``."""
+    import re
+    frames, entry = {}, ""
+    for line in build.lib_path(name).with_suffix(".log").read_text() \
+            .splitlines():
+        if "Compiling entry" in line:
+            entry = instantiation(line)
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m:
+            frames[entry] = int(m.group(1))
+    return frames
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -437,7 +464,16 @@ def phase_main_shape(sl, simstep) -> dict:
 
 
 def phase_main(sl, simstep) -> dict:
-    """The main path: four full-size sweeps through the kernel."""
+    """The main path: four full-size sweeps through the kernel, each as
+    ``sweep`` runs it, ``init_sweep`` then ``simulate``, with the host's
+    clock read around each part after a synchronisation, so the parts sum
+    to the sweep's wall time.  Beside each sweep's wall time and events/s:
+    the launches past the last live chunk (``simulate`` checks for live
+    cells once per ``LIVENESS_GROUP`` launches; checking after every
+    launch would stop at the most chunks any cell needs), and, from the
+    same sweep run again under ``torch.profiler`` (not counted), the card
+    time of its ``fused_chunk`` launches and the time ``simulate`` spends
+    outside them."""
     import numpy as np
     import torch
     torch.cuda.reset_peak_memory_stats()
@@ -447,21 +483,29 @@ def phase_main(sl, simstep) -> dict:
         cfg = sl.SimConfig(policy=pol, sim_time_us=MAIN_US, epcap=8192,
                            **FIG1)
         n0 = simstep.fused_chunk.launches
-        out = {}
-        ms = cuda_ms(lambda: out.update(zip(
-            ("st", "grid"), sl.sweep(cfg, MAIN_GRID[pol], device="cuda"))))
-        runs[pol] = (cfg, out["st"], out["grid"], ms,
-                     simstep.fused_chunk.launches - n0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tb, pm, st, grid = sl.init_sweep(cfg, MAIN_GRID[pol], device="cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        sl.simulate(cfg, tb, pm, st)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        runs[pol] = (cfg, st, grid, (t2 - t0) * 1e3, (t1 - t0) * 1e3,
+                     (t2 - t1) * 1e3, simstep.fused_chunk.launches - n0)
     launches = simstep.fused_chunk.launches
     peak = torch.cuda.max_memory_allocated()
-    total_ev, total_ms = 0, 0.0
-    for pol, (cfg, st, grid, ms, n) in runs.items():
+    total_ev, total_ms, total_over = 0, 0.0, 0
+    for pol, (cfg, st, grid, ms, init, sim, n) in runs.items():
         ev = st.events.cpu().numpy()
         total_ev += int(ev.sum())
         total_ms += ms
+        over = n - int(-(-ev.max() // cfg.chunk))
+        total_over += over
         print(f"main {pol}: {ev.size} cells, {int(ev.sum())} events, "
-              f"{ms / 1e3:.3f} s, {ev.sum() / (ms / 1e3):.0f} events/s, "
-              f"{n} launches", flush=True)
+              f"{ms / 1e3:.3f} s ({init:.1f} ms init_sweep, {sim:.1f} ms "
+              f"simulate), {ev.sum() / (ms / 1e3):.0f} events/s, {n} "
+              f"launches ({over} past the last live chunk)", flush=True)
         horizon = int(round(MAIN_US * 100))     # ticks
         if (ev <= 0).any() or int(st.t.max()) >= horizon:
             raise AssertionError(f"{pol}: a cell retired no event or ran "
@@ -501,14 +545,36 @@ def phase_main(sl, simstep) -> dict:
               f"ep_p99_big_us={head['ep_p99_big_us']:.2f} "
               f"ep_p99_little_us={head['ep_p99_little_us']:.2f}",
               flush=True)
+    # Each sweep again under the profiler, not counted: the card time of
+    # its fused_chunk launches, and simulate's time outside them.
+    init_ms = sim_ms = card_ms = 0.0
+    for pol, (cfg, *_rest, ms, init, sim, n) in runs.items():
+        card = sum(v for k, v in kernel_split(lambda: sl.sweep(
+            cfg, MAIN_GRID[pol], device="cuda"), 1).items()
+            if "fused_chunk" in k)
+        init_ms += init
+        sim_ms += sim
+        card_ms += card
+        print(f"main {pol}: of its {ms:.1f} ms wall, init_sweep {init:.1f} "
+              f"ms, simulate {sim:.1f} ms: fused_chunk on the card "
+              f"{card:.1f} ms ({card / n:.4f} ms a launch), outside the "
+              f"kernel {sim - card:.1f} ms", flush=True)
     print(f"main path: {sum(len(r[1].events) for r in runs.values())} "
           f"cells, {total_ev} events in {total_ms / 1e3:.3f} s "
           f"({total_ev / (total_ms / 1e3):.0f} events/s), {launches} "
-          f"fused_chunk launches, max_memory_allocated "
+          f"fused_chunk launches ({total_over} past the last live chunk; "
+          f"liveness checked once per {sl.LIVENESS_GROUP}); init_sweep "
+          f"{init_ms:.1f} ms, simulate {sim_ms:.1f} ms, of it fused_chunk "
+          f"{card_ms:.1f} ms on the card (profiler) and outside the kernel "
+          f"{sim_ms - card_ms:.1f} ms; max_memory_allocated "
           f"{peak / 2**30:.3f} GiB", flush=True)
     if launches <= 0:
         raise AssertionError("the main path launched no fused_chunk kernel")
-    return {"launches": launches}
+    return {"launches": launches, "wall_s": total_ms / 1e3,
+            "events_per_s": total_ev / (total_ms / 1e3),
+            "launches_past_end": total_over, "init_sweep_ms": init_ms,
+            "simulate_ms": sim_ms, "card_ms": card_ms,
+            "outside_ms": sim_ms - card_ms}
 
 
 def mlstm_inputs(gen, b, h, s, dh, dtype, carry):
@@ -889,8 +955,10 @@ def phase_flash(fa) -> dict:
 
 def decode_case(da, gen, b, h, kh, t, dh, dtype, lengths,
                 starts=None) -> tuple:
-    """One launch against the plain version, the caches as transposed
-    views of [B,T,K,dh] (the model's layout); -> (max abs err, ok)."""
+    """The wrapper's split and one forced split, each one launch against
+    the plain version, the caches as transposed views of [B,T,K,dh] (the
+    model's layout); a row of length 0 must come out zeros (the plain
+    version gives NaN there).  -> (max abs err, ok)."""
     import torch
     f = lambda *shape: torch.randn(*shape, generator=gen, device="cuda") \
         .to(dtype)
@@ -899,23 +967,39 @@ def decode_case(da, gen, b, h, kh, t, dh, dtype, lengths,
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     if starts is not None:
         starts = torch.tensor(starts, dtype=torch.int32, device="cuda")
-    n0 = da.decode_attention.launches
-    got = da.decode_attention(q, kc, vc, lens, starts)
-    torch.cuda.synchronize()
-    want = da.decode_attention_ref(q, kc, vc, lens, starts)
-    err = float((got.float() - want.float()).abs().max())
+    want = da.decode_attention_ref(q, kc, vc, lens, starts).float()
+    seen = torch.isfinite(want)
     tol = attn_tol(dtype)
-    ok = (torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
-          and da.decode_attention.launches == n0 + 1
-          and got.shape == q.shape and got.dtype == q.dtype)
+    err, ok = 0.0, True
+    for splits in (None, 1):
+        n0 = da.decode_attention.launches
+        got = da.decode_attention(q, kc, vc, lens, starts, splits=splits)
+        torch.cuda.synchronize()
+        a = got.float()
+        if seen.any():
+            err = max(err, float((a[seen] - want[seen]).abs().max()))
+        ok = ok and (torch.allclose(a[seen], want[seen], atol=tol, rtol=tol)
+                     and bool((a[~seen] == 0).all())
+                     and da.decode_attention.launches == n0 + 1
+                     and got.shape == q.shape and got.dtype == q.dtype)
     return err, ok
+
+
+def decode_plan(da, b, h, kh, t, dh, esize) -> tuple:
+    """(splits, blocks) the wrapper takes at a shape on this card."""
+    import torch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    splits = da.plan_splits(b, kh, t, h // kh, dh, esize, sms)
+    return splits, splits * kh * b
 
 
 def decode_timing(da, gen, b, h, kh, t, dh, n, starts) -> dict:
     """One decode shape in bf16 with ``n`` valid slots of every row (ring
     starts: None or zeros), the caches as the model's views: the kernel
     timed against its bound, the plain version and PyTorch's fused
-    attention on the valid prefix."""
+    attention on the valid prefix; two calls bit-equal; then the
+    wrapper's split against one forced split (``splits=1``), in turns
+    (split, unsplit, unsplit, split)."""
     import torch
     f = lambda *shape: torch.randn(*shape, generator=gen, device="cuda") \
         .to(torch.bfloat16)
@@ -924,9 +1008,11 @@ def decode_timing(da, gen, b, h, kh, t, dh, n, starts) -> dict:
     lens = torch.full((b,), n, dtype=torch.int32, device="cuda")
     st = None if starts is None else \
         torch.full((b,), starts, dtype=torch.int32, device="cuda")
+    splits, blocks = decode_plan(da, b, h, kh, t, dh, 2)
     kernel_ms, times = median_ms(
         lambda: da.decode_attention(q, kc, vc, lens, st), reps=100)
     got = da.decode_attention(q, kc, vc, lens, st)
+    again = da.decode_attention(q, kc, vc, lens, st)
     out = {}
     plain_ms = cuda_ms(lambda: out.update(
         want=da.decode_attention_ref(q, kc, vc, lens, st)))
@@ -935,51 +1021,95 @@ def decode_timing(da, gen, b, h, kh, t, dh, n, starts) -> dict:
     kv, vv = (x[:, :, :n].contiguous() for x in (kc, vc))
     lib_ms, _ = median_ms(lambda: library_attention(q4, kv, vv, False),
                           reps=100)
+    _, lib_dev_ms, _ = device_busy(
+        lambda: library_attention(q4, kv, vv, False), 100)
     _, dev_ms, _ = device_busy(
+        lambda: da.decode_attention(q, kc, vc, lens, st), 100)
+    by_kernel = kernel_split(
         lambda: da.decode_attention(q, kc, vc, lens, st), 100)
     n_bytes = 2 * (2 * q.numel() + 2 * b * kh * n * dh)
     flops = 2 * 2 * b * h * n * dh
     bnd, by = bound(n_bytes, flops)
+    turns = {}
+    for name in ("split", "unsplit", "unsplit", "split"):
+        force = 1 if name == "unsplit" else None
+        ms, _ = median_ms(lambda: da.decode_attention(
+            q, kc, vc, lens, st, splits=force), reps=100)
+        _, card, _ = device_busy(lambda: da.decode_attention(
+            q, kc, vc, lens, st, splits=force), 100)
+        turns.setdefault(name, []).append((round(ms, 4), round(card, 4)))
     print(f"decode_attention B={b} H={h} K={kh} T={t} length {n} starts "
           f"{starts} dh={dh} bf16: kernel {kernel_ms:.4f} ms/launch (of "
-          f"{[round(x, 4) for x in times]}; on the card {dev_ms:.4f}), "
-          f"plain {plain_ms:.3f} ms, "
-          f"library {lib_ms:.4f} ms, bound {bnd:.6f} ms ({by}; "
-          f"{n_bytes / 1e6:.2f} MB), {kh * b} blocks, max abs err "
-          f"{err:.3g}", flush=True)
-    if err > attn_tol(torch.bfloat16):
-        raise AssertionError(f"decode_attention != plain at B={b} H={h} "
-                             f"K={kh} T={t} dh={dh}")
+          f"{[round(x, 4) for x in times]}; on the card {dev_ms:.4f}: "
+          f"{ {k: round(v, 4) for k, v in by_kernel.items()} }), plain "
+          f"{plain_ms:.3f} ms, library {lib_ms:.4f} ms (on the card "
+          f"{lib_dev_ms:.4f}), bound {bnd:.6f} ms "
+          f"({by}; {n_bytes / 1e6:.2f} MB), {splits} splits x {kh * b} = "
+          f"{blocks} blocks, max abs err {err:.3g}, two calls "
+          f"{'bit-equal' if torch.equal(got, again) else 'DIFFER'}; in "
+          f"turns (ms/launch, on the card): split {turns['split']}, "
+          f"unsplit (one block per row and kv head, {kh * b} blocks) "
+          f"{turns['unsplit']}", flush=True)
+    if err > attn_tol(torch.bfloat16) or not torch.equal(got, again):
+        raise AssertionError(f"decode_attention != plain or not "
+                             f"deterministic at B={b} H={h} K={kh} T={t} "
+                             f"dh={dh}")
     return {"ms": kernel_ms, "plain_ms": plain_ms, "max_abs_err": err,
-            "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms}
+            "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms,
+            "library_card_ms": lib_dev_ms, "card_ms": dev_ms,
+            "splits": splits, "blocks": blocks,
+            "unsplit_ms": min(t[0] for t in turns["unsplit"]),
+            "unsplit_card_ms": min(t[1] for t in turns["unsplit"])}
+
+
+# Lengths of the decode sweep: the first port's, and the edges of the
+# split kernel's 16- and 32-key pieces and of a row of length 0.
+DECODE_LENGTHS = (1, 15, 16, 17, 63, 64, 65, 257)
 
 
 def phase_decode(da) -> dict:
     """decode_attention == its plain version on the card over the sweep
-    (prefix lengths, and ring starts where a local block's window drops
-    slots of a wrapped ring), then the yi-6b and recurrentgemma-2b decode
-    shapes timed against their bounds, the plain version and PyTorch's
-    fused attention.  -> the yi-6b shape's numbers (the kernel
-    table's)."""
+    (prefix lengths, rows of length 0, ring starts where a local block's
+    window drops slots of a wrapped ring, runs that wrap inside a split,
+    and recurrentgemma-2b's heads on its local ring of 2,049 slots), each
+    case through the wrapper's split and one forced split; then the yi-6b
+    and recurrentgemma-2b decode shapes timed against their bounds, the
+    plain version, PyTorch's fused attention and the unsplit kernel.  ->
+    the yi-6b shape's numbers (the kernel table's), the
+    recurrentgemma-2b shape's under "rg"."""
     import torch
     from repro_torch.models import layers
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
     n_bad = n_cases = 0
+
+    def case(label, *args):
+        nonlocal n_bad, n_cases
+        err, ok = decode_case(da, gen, *args)
+        n_cases += 1
+        n_bad += not ok
+        if not ok:
+            print(f"decode_attention {label}: max abs err {err:.3g} OVER "
+                  f"TOLERANCE", flush=True)
+        return err, ok
+
     for dtype in (torch.float32, torch.bfloat16):
         for h, kh, dh in DECODE_HEADS:
             for t in (512, 300):
                 mix = [1, 257, 511, t, 64, 65, 2, t - 1]
+                edges = [0, 15, 16, 17, 63, 0, t, 257]
                 for lengths in ([1] * 8, [257] * 8, [min(511, t)] * 8,
-                                [t] * 8, [min(x, t) for x in mix]):
-                    err, ok = decode_case(da, gen, 8, h, kh, t, dh, dtype,
-                                          lengths)
-                    n_cases += 1
-                    n_bad += not ok
-                    if not ok:
-                        print(f"decode_attention {dtype} H={h} K={kh} "
-                              f"dh={dh} T={t} lengths={lengths}: max abs "
-                              f"err {err:.3g} OVER TOLERANCE", flush=True)
+                                [t] * 8, [min(x, t) for x in mix],
+                                [min(x, t) for x in edges],
+                                list(DECODE_LENGTHS)):
+                    case(f"{dtype} H={h} K={kh} dh={dh} T={t} lengths="
+                         f"{lengths}", 8, h, kh, t, dh, dtype, lengths)
+                # Ring runs that wrap at T inside a split's positions.
+                starts = [t - 10, t - 1, t - 100, 5, t - 3, 0, t // 2,
+                          t - 257]
+                case(f"{dtype} H={h} K={kh} dh={dh} T={t} wrapped runs",
+                     8, h, kh, t, dh, dtype, [257, 2, 200, t, 65, 0, t,
+                                              257], starts)
     # A local block's ring: window 16 on 17 slots, every row at one
     # position (16: the first slot leaves the window; 17: the ring wraps;
     # 40) and a batch of rows at mixed positions (mixed starts).
@@ -992,27 +1122,48 @@ def phase_decode(da) -> dict:
                         for x in last]
                 lengths = [int(n) for n, _ in runs]
                 starts = [int(st) for _, st in runs]
-                err, ok = decode_case(da, gen, 8, h, kh, t, dh, dtype,
-                                      lengths, starts)
-                n_cases += 1
-                n_bad += not ok
-                if not ok or dtype == torch.float32 and h == 10:
+                err, ok = case(f"ring T={t} window={window} {dtype} H={h} "
+                               f"K={kh} dh={dh} positions {last}", 8, h,
+                               kh, t, dh, dtype, lengths, starts)
+                if ok and dtype == torch.float32 and h == 10:
                     print(f"decode_attention ring T={t} window={window} "
                           f"{dtype} H={h} K={kh} dh={dh} positions {last} "
                           f"-> lengths {lengths} starts {starts}: max abs "
-                          f"err {err:.3g} {'ok' if ok else 'OVER TOLERANCE'}",
-                          flush=True)
+                          f"err {err:.3g} ok", flush=True)
+    # recurrentgemma-2b's local ring (window 2048, 2,049 slots), at
+    # positions before and after it wraps.
+    t, window = 2049, 2048
+    for dtype in (torch.float32, torch.bfloat16):
+        for last in ([256] * 8, [2048] * 8, [2049] * 8,
+                     [0, 16, 63, 2047, 2048, 2049, 3000, 5000]):
+            runs = [layers.decode_run(torch.tensor(x), t, window)
+                    for x in last]
+            case(f"ring T={t} window={window} {dtype} positions {last}", 8,
+                 10, 1, t, 256, dtype, [int(n) for n, _ in runs],
+                 [int(st) for _, st in runs])
+    plan = {name: decode_plan(da, 8, h, kh, t, dh, 2)
+            for name, (h, kh, t, dh) in (
+                (YI, (32, 4, 512, 128)), (RG, (10, 1, 512, 256)),
+                (f"{RG} ring", (10, 1, 2049, 256)))}
     print(f"decode_attention sweep: {n_cases - n_bad}/{n_cases} cases "
-          f"within tolerance (f32/bf16 x (H, K, dh) in {DECODE_HEADS} x T "
-          f"512/300 x lengths 1, 257, 511, T and a mix per row; ring of 17 "
-          f"slots, window 16, at positions 16, 17, 40 and a mix)",
-          flush=True)
+          f"within tolerance, each through the wrapper's split and one "
+          f"forced split (f32/bf16 x (H, K, dh) in {DECODE_HEADS} x T "
+          f"512/300 x lengths 1, 257, 511, T, a mix, 0 and the split "
+          f"edges {DECODE_LENGTHS} per row, and runs that wrap inside a "
+          f"split; ring of 17 slots, window 16, at positions 16, 17, 40 "
+          f"and a mix; recurrentgemma-2b's heads on its ring of 2,049 "
+          f"slots, window 2048); rows of length 0 zeros; (splits, blocks) "
+          f"at batch 8: {plan}", flush=True)
     if n_bad:
         raise AssertionError(f"decode_attention != plain in {n_bad} cases")
     b, t, n = SERVE_BATCH, 2 * SERVE_CHUNK, SERVE_CHUNK + 1
     yi = decode_timing(da, gen, b, 32, 4, t, 128, n, None)
-    decode_timing(da, gen, b, 10, 1, t, 256, n, 0)
-    return yi
+    rg = decode_timing(da, gen, b, 10, 1, t, 256, n, 0)
+    if min(yi["blocks"], rg["blocks"]) < \
+            torch.cuda.get_device_properties(0).multi_processor_count:
+        raise AssertionError("a serving decode shape runs fewer blocks "
+                             "than the card has SMs")
+    return dict(yi, rg=rg)
 
 
 def model_steps(lm, params, cfg, toks, n_decode, **kernels) -> tuple:
@@ -1316,8 +1467,9 @@ def phase_serve_once(arch, counters, params, *, with_decode) -> tuple:
     cfg = registry.get(arch)[0]
     for f in counters.values():
         f.launches = 0
-        if hasattr(f, "launches_tc"):
-            f.launches_tc = 0
+        for extra in ("launches_tc", "launches_split"):
+            if hasattr(f, extra):
+                setattr(f, extra, 0)
     cost = serve.calibrated_cost(cfg, batch=SERVE_BATCH,
                                  prefill_chunk=SERVE_CHUNK, device="cuda",
                                  params=params)
@@ -1332,6 +1484,9 @@ def phase_serve_once(arch, counters, params, *, with_decode) -> tuple:
                                duration=SERVE_DURATION_S, slo_ttft=slo)
             for sched in SCHEDULERS}
     launches = {k: f.launches for k, f in counters.items()}
+    launches.update({f"{k} split": f.launches_split
+                     for k, f in counters.items()
+                     if hasattr(f, "launches_split")})
     # Every attention call of a serving run is bf16: the tensor-core route.
     routes = {k: f.launches_tc for k, f in counters.items()
               if hasattr(f, "launches_tc")}
@@ -1347,8 +1502,17 @@ def phase_serve_once(arch, counters, params, *, with_decode) -> tuple:
     print(f"serve {arch}: launches {launches} (one calibration: 6 "
           f"prefills and 21 decode steps of {cfg.n_layers} layers)",
           flush=True)
+    split = {k: f.launches_split for k, f in counters.items()
+             if hasattr(f, "launches_split")}
     print(f"serve {arch}: tensor-core route launches {routes} of "
-          f"{ {k: launches[k] for k in routes} }", flush=True)
+          f"{ {k: launches[k] for k in routes} }; decode calls split over "
+          f"the cache {split} of { {k: launches[k] for k in split} }",
+          flush=True)
+    # Every decode shape of a calibration (batch 8, one or four kv heads)
+    # has fewer rows than the card has SMs: the wrapper splits it.
+    if any(n <= 0 for n in split.values()):
+        raise AssertionError(f"the {arch} serving path never split a "
+                             f"decode call: {split}")
     if min(launches.values()) <= 0:
         raise AssertionError(f"the {arch} serving path launched a kernel "
                              f"no time: {launches}")
@@ -1895,7 +2059,26 @@ def phase_rglru_bwd(rs) -> dict:
           f"{dev_ms:.4f}), plain {plain_ms:.2f} ms, bound "
           f"{n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes: a, h, dh read "
           f"and da, dx written once)", flush=True)
-    return {"bwd_ms": ms, "bwd_plain_ms": plain_ms}
+    # The training forward (and its recompute): one launch over the
+    # microbatch, as the trainer calls it 216 times in 3 steps.
+    fwd_ms, fwd_times = median_ms(lambda: rs.rglru_scan(a, x), reps=20)
+    _, fwd_dev_ms, _ = device_busy(lambda: rs.rglru_scan(a, x), 20)
+    out = {}
+    fwd_plain_ms = cuda_ms(lambda: out.update(want=rs.rglru_scan_ref(a, x)))
+    fwd_err, fwd_ok = rglru_check(h, out["want"], torch.float32)
+    fwd_bound, fwd_by = rglru_bound(1, TRAIN_SEQ, 2560, 4, False)
+    print(f"rglru_scan forward at the training shape B=1 S={TRAIN_SEQ} "
+          f"R=2560 f32: {fwd_ms:.4f} ms a launch (of "
+          f"{[round(t, 4) for t in fwd_times]}; on the card "
+          f"{fwd_dev_ms:.4f}), plain {fwd_plain_ms:.2f} ms, bound "
+          f"{fwd_bound:.5f} ms ({fwd_by}), max abs err {fwd_err:.3g}",
+          flush=True)
+    if not fwd_ok:
+        raise AssertionError("rglru_scan != plain at the training shape")
+    return {"bwd_ms": ms, "bwd_plain_ms": plain_ms, "forward": {
+        "ms": fwd_ms, "card_ms": fwd_dev_ms, "plain_ms": fwd_plain_ms,
+        "max_abs_err": fwd_err, "bound_ms": fwd_bound,
+        "bound_by": fwd_by}}
 
 
 def train_config(n_layers=None):
@@ -2250,6 +2433,11 @@ def main() -> int:
                     entry = instantiation(line)
                 elif "registers" in line or "spill" in line:
                     print(f"  {name} {entry}: {line.strip()}")
+        frames = stack_frames(build, "simstep")
+        print(f"fused_chunk stack frames (ptxas, bytes): {frames}",
+              flush=True)
+        if not frames or any(frames.values()):
+            raise AssertionError("fused_chunk keeps a stack frame")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         phase_parity(sl, simstep)
@@ -2279,7 +2467,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         t0 = time.time()
         flash_bwd = phase_flash_bwd(fa, fb)
-        phase_rglru_bwd(rs)
+        rglru_train = phase_rglru_bwd(rs)
         phase_train_step_parity(fa, fb, rs)
         print(f"training kernel phases: {time.time() - t0:.1f} s", flush=True)
         import shutil
@@ -2330,7 +2518,7 @@ def main() -> int:
         max_abs_err=rglru["max_abs_err"],
         ms=rglru["ms"], plain_ms=rglru["plain_ms"],
         bound_ms=rglru["bound_ms"], bound_by=rglru["bound_by"],
-        library_ms=None), dict(
+        library_ms=None, train_forward=rglru_train["forward"]), dict(
         name="flash_attention_bwd", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         replaces="src/repro/kernels/flash_attention_bwd.py:162",
@@ -2358,6 +2546,20 @@ def main() -> int:
         if row["name"] == "flash_attention":
             row["train_shape"] = dict(flash_bwd["forward"], launches=(
                 train_launches["flash_attention"]))
+        if row["name"] == "decode_attention":
+            row.update(
+                launches_split=yi_launches["decode_attention split"],
+                card_ms=dec["card_ms"],
+                library_card_ms=dec["library_card_ms"], splits=dec["splits"],
+                blocks=dec["blocks"], unsplit_ms=dec["unsplit_ms"],
+                rg_shape={k: dec["rg"][k] for k in (
+                    "ms", "card_ms", "library_card_ms", "splits", "blocks",
+                    "unsplit_ms",
+                    "bound_ms", "library_ms", "max_abs_err")})
+        if row["name"] == "fused_chunk":
+            row.update({k: main_run[k] for k in (
+                "wall_s", "events_per_s", "launches_past_end",
+                "init_sweep_ms", "simulate_ms", "card_ms", "outside_ms")})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -595,16 +595,44 @@ def _live_cells(cfg: SimConfig, pm: SimParams, st: SimState) -> torch.Tensor:
         (st.events < cfg.max_events)
 
 
+#: Kernel launches between two liveness checks on the host (CUDA tensors).
+#: Each check synchronises the host with the card; a launch after every
+#: cell has finished changes nothing (the kernel's per-cell guard), so up
+#: to LIVENESS_GROUP - 1 launches past the end cost only their latency.
+LIVENESS_GROUP = 16
+
+
+def run_chunks(cfg: SimConfig, pm: SimParams, st: SimState, launch,
+               group: int = 1) -> int:
+    """Call ``launch()`` (one chunk of every cell) until no cell is live,
+    checking on the host once per ``group`` calls; -> the calls made."""
+    calls = 0
+    while bool(_live_cells(cfg, pm, st).any()):
+        for _ in range(group):
+            launch()
+        calls += group
+    return calls
+
+
 def simulate(cfg: SimConfig, tb: SimTables, pm: SimParams, st: SimState,
              chunk_fn=None) -> SimState:
     """Run every cell to its end, ``cfg.chunk`` events per call of
     ``chunk_fn`` (default: the kernel wrapper, which takes the plain
-    version on CPU tensors).  Updates ``st`` in place and returns it."""
+    version on CPU tensors).  Updates ``st`` in place and returns it.
+
+    By default the operands are checked once (``simstep.bind``) and, on
+    CUDA tensors, liveness once per ``LIVENESS_GROUP`` launches; on CPU
+    tensors, and with a given ``chunk_fn``, after every chunk."""
+    group = 1
     if chunk_fn is None:
         from repro_torch.kernels import simstep
-        chunk_fn = simstep.fused_chunk
-    while bool(_live_cells(cfg, pm, st).any()):
-        chunk_fn(tb, pm, st, cfg.chunk, cfg)
+        launch = simstep.bind(tb, pm, st, cfg.chunk, cfg)
+        if st.t.device.type == "cuda":
+            group = LIVENESS_GROUP
+    else:
+        def launch():
+            chunk_fn(tb, pm, st, cfg.chunk, cfg)
+    run_chunks(cfg, pm, st, launch, group)
     return st
 
 

@@ -5,37 +5,57 @@
 // pallas_call with the packed state held in VMEM.  This kernel does the
 // same work for a batch of sweep cells: each launch advances every cell by
 // up to `chunk` events of the closed-loop step (acquire, release, standby
-// expiry) under the fifo / tas / prop / libasl hooks, chosen by the policy
-// id.  Results are bit-identical to the plain PyTorch step
+// expiry) under the fifo / tas / prop / libasl hooks, one instantiation per
+// policy.  Results are bit-identical to the plain PyTorch step
 // (repro_torch/core/simlock.py::_step) and to the JAX package.
 //
 // What bounds it on this card: each cell is one serial chain of events.
-// An event reads the head of the event clock (N ints), then the handler
-// makes a short chain of dependent loads and stores on the cell's state
-// (the core's phase, segment, lock, queue head/tail, holder, one ring
-// sample), about 100-200 bytes per event.  The bytes are tiny against
-// 3.35 TB/s; what limits a cell is the latency of that dependent chain,
-// and the card is filled only by running many cells at once.
+// Per launch a cell's state is read once and written once (a few hundred
+// bytes; 0.45 us for the main path's 1,024 cells at 3.35 TB/s), and each
+// recorded latency is one 4-byte ring store.  What limits a cell is the
+// latency of its dependent chain: per event, a warp min (redux.sync) and
+// ballot over the lanes' t_ready for the head of the clock, then the
+// handler's chain of dependent shared-memory loads (phase -> lock ->
+// holder / queue head and tail -> queue slot -> seg -> cs_dur), about 4
+// to 8 loads of ~30 cycles each, and a 64-bit multiply for each queue
+// slot and ring index (x mod n, x mod cap, by Lemire's method); a tas /
+// libasl release adds three threefry2x32 blocks (two of them
+// independent), about 2 x 20 rounds of three dependent integer ops.  So
+// an event takes a few hundred cycles, not the ~2,000 that the same chain
+// costs through device memory; the card is filled only by running many
+// cells at once.
 //
-// What the design does about it: one warp per cell, lane = core.  The
-// argmin of t_ready is a warp shuffle reduction on (t_ready, lane) that
-// breaks ties to the lowest core, as jnp.argmin does; lane 0 then runs the
-// one handler the head core's phase selects, and __syncwarp orders its
-// stores before the next event's loads.  Cells run in parallel, four warps
-// to a block.  A warp stops as soon as its cell is past its horizon or
-// event cap, so finished cells cost nothing.  State stays in device memory
-// in the port's cell-major layout (staging it in registers and shared
-// memory is the next step).
+// What the design does about it: one warp per cell, lane = core.  At
+// launch start the warp checks that its cell is live (a cell that is not
+// loads nothing more and stores nothing), then stages the cell in shared
+// memory: its per-core state and tables, each core's lock (seg_lock[seg],
+// kept up to date), its queues with their heads and tails, holders and
+// proportional counters; its key, clock, event count and params go to
+// registers, and each lane keeps its own core's t_ready in a register
+// (the handlers only write t_ready).  Every lane runs the handlers on the same
+// values (stores of one value to one shared address from all lanes, so
+// each lane sees every store in its own program order); the lanes work
+// apart only where the step is per core: each lane offers its own
+// t_ready for the head of the clock (lowest core on ties, as jnp.argmin,
+// by the ballot's first lane), and in
+// tas / libasl's pick_next each lane computes its own core's weight.  The
+// weights' prefix sum stays left to right in f32 (each lane runs the same
+// serial sum over the weights in shared memory and keeps its own core's
+// partial), so the pick is bit-identical to the plain version's cumsum.
+// The latency rings stay in device memory, written by lane 0 and never
+// read.  The mutable state goes back to device memory once, at the end.
+// Shared memory per cell: (12 n + 2 n s + s + 2 l n + 6 l + 32) words for
+// n cores, s segments and l locks; up to four cells (warps) a block.
 //
 // Bit-exactness: build with -fmad=false (no a*b+c contraction), keep the
 // reference's compiled f32 operation order (its AIMD unit is one multiply
 // by a folded constant), truncate f32->i32 toward zero, take the
-// weighted-pick prefix sum left to right in lane 0, and split the RNG key
-// on every release of tas / libasl (even when no standby pick follows).
+// weighted-pick prefix sum left to right, and split the RNG key on every
+// release of tas / libasl (even when no standby pick follows).
 
 #include <cuda_runtime.h>
-#include <stdint.h>
 #include <limits.h>
+#include <stdint.h>
 
 namespace {
 
@@ -43,64 +63,59 @@ constexpr int kNonCrit = 0, kStandby = 1, kQueued = 2, kHolder = 3,
               kSpin = 4;
 constexpr int kInf = 1 << 30;
 constexpr int kFifo = 0, kTas = 1, kProp = 2, kLibasl = 3;
-constexpr int kMaxCores = 32;
-constexpr int kWarpsPerBlock = 4;
+constexpr int kMaxWarpsPerBlock = 4;
+constexpr int kSmemLimit = 232448;  // dynamic shared memory of one block
+constexpr unsigned kFull = 0xffffffffu;
+
+// The operands, in this order (the wrapper's _ORDER): tables, params,
+// state.  All cell-major and contiguous.
+enum Operand {
+  kBig, kCsDur, kNcDur, kInter, kSegLock, kSloScale,
+  kSlo, kWBig, kPropN, kHorizon,
+  kT, kKey, kPhase, kTReady, kSeg, kEpochStart, kAttemptT, kWindow, kUnit,
+  kQ, kQHead, kQTail, kHolderOp, kPropCtr, kEpLat, kEpCnt, kCsLat, kCsCnt,
+  kEvents, kNumOperands
+};
+
+// x mod d for 32-bit x >= 0 by two multiplies (Lemire, Kaser and Kurz,
+// "Faster remainder by direct computation", 2019): m = 2^64 / d rounded
+// up, computed once on the host; exact for every 32-bit x (d = 1: m wraps
+// to 0 and so does the result).
+struct FastMod {
+  unsigned long long m;
+  unsigned d;
+};
+
+FastMod fast_mod(unsigned d) { return {~0ull / d + 1, d}; }
+
+__device__ __forceinline__ int mod(int x, FastMod f) {
+  return static_cast<int>(
+      __umul64hi(f.m * static_cast<unsigned>(x), f.d));
+}
 
 struct Args {
-  // tables
-  const int* big;
-  const int* cs_dur;
-  const int* nc_dur;
-  const int* inter;
-  const int* seg_lock;
-  const float* slo_scale;
-  // params
-  const float* slo;
-  const float* w_big;
-  const int* prop_n;
-  const int* horizon;
-  // state
-  int* t;
-  long long* key;
-  int* phase;
-  int* t_ready;
-  int* seg;
-  int* epoch_start;
-  int* attempt_t;
-  float* window;
-  float* unit;
-  int* q;
-  int* q_head;
-  int* q_tail;
-  int* holder;
-  int* prop_ctr;
-  float* ep_lat;
-  int* ep_cnt;
-  float* cs_lat;
-  int* cs_cnt;
-  int* events;
-  // shapes and config
-  int n_cells, n, s, l, cap, policy, chunk, max_events;
+  void* p[kNumOperands];
+  int n_cells, n, s, l, cap, chunk, max_events;
   float unit_mul, max_window;
+  FastMod mod_n, mod_cap;
 };
 
-// One cell's slice of every array, plus the shared config.
+// Words of shared memory one cell takes (see the header).
+__host__ __device__ constexpr int cell_words(int n, int s, int l) {
+  return 12 * n + 2 * n * s + s + 2 * l * n + 6 * l + 32;
+}
+
+// One cell: pointers into its shared-memory stage, its rings in device
+// memory, and what stays in registers.
 struct Cell {
-  const int* big;
-  const int* cs_dur;
-  const int* nc_dur;
-  const int* inter;
-  const int* seg_lock;
-  const float* slo_scale;
-  float slo, w_big;
-  int prop_n, horizon;
-  int* t;
-  long long* key;
+  // mutable, staged
   int* phase;
-  int* t_ready;
+  int* lk;           // each core's lock, seg_lock[seg] (not written back)
   int* seg;
   int* epoch_start;
   int* attempt_t;
+  int* ep_cnt;
+  int* cs_cnt;
   float* window;
   float* unit;
   int* q;
@@ -108,55 +123,60 @@ struct Cell {
   int* q_tail;
   int* holder;
   int* prop_ctr;
+  // read-only, staged
+  int* big;
+  int* inter;
+  float* slo_scale;
+  int* cs_dur;
+  int* nc_dur;
+  int* seg_lock;
+  float* wbuf;       // one weight per lane (pick_next)
+  // device memory
   float* ep_lat;
-  int* ep_cnt;
   float* cs_lat;
-  int* cs_cnt;
-  int* events;
-  int n, s, cap, policy, max_events;
+  // registers
+  int tr;            // this lane's core's t_ready
+  uint32_t k0, k1;
+  float slo, w_big;
+  int prop_n;
+  int n, s, cap, lane;
+  FastMod mod_n, mod_cap;
   float unit_mul, max_window;
 };
 
-__device__ Cell cell_of(const Args& a, int b) {
-  const size_t n = a.n, s = a.s, l = a.l, cap = a.cap, cb = b;
-  Cell c;
-  c.big = a.big + cb * n;
-  c.cs_dur = a.cs_dur + cb * n * s;
-  c.nc_dur = a.nc_dur + cb * n * s;
-  c.inter = a.inter + cb * n;
-  c.seg_lock = a.seg_lock + cb * s;
-  c.slo_scale = a.slo_scale + cb * n;
-  c.slo = a.slo[b];
-  c.w_big = a.w_big[b];
-  c.prop_n = a.prop_n[b];
-  c.horizon = a.horizon[b];
-  c.t = a.t + cb;
-  c.key = a.key + 2 * cb;
-  c.phase = a.phase + cb * n;
-  c.t_ready = a.t_ready + cb * n;
-  c.seg = a.seg + cb * n;
-  c.epoch_start = a.epoch_start + cb * n;
-  c.attempt_t = a.attempt_t + cb * n;
-  c.window = a.window + cb * n;
-  c.unit = a.unit + cb * n;
-  c.q = a.q + cb * l * 2 * n;
-  c.q_head = a.q_head + cb * l * 2;
-  c.q_tail = a.q_tail + cb * l * 2;
-  c.holder = a.holder + cb * l;
-  c.prop_ctr = a.prop_ctr + cb * l;
-  c.ep_lat = a.ep_lat + cb * n * cap;
-  c.ep_cnt = a.ep_cnt + cb * n;
-  c.cs_lat = a.cs_lat + cb * n * cap;
-  c.cs_cnt = a.cs_cnt + cb * n;
-  c.events = a.events + cb;
-  c.n = a.n;
-  c.s = a.s;
-  c.cap = a.cap;
-  c.policy = a.policy;
-  c.max_events = a.max_events;
-  c.unit_mul = a.unit_mul;
-  c.max_window = a.max_window;
-  return c;
+// Carve one cell's stage out of `base` (cell_words(n, s, l) words).
+__device__ __forceinline__ void carve(Cell& c, int* base, int n, int s,
+                                      int l) {
+  int* p = base;
+  c.phase = p;        p += n;
+  c.lk = p;           p += n;
+  c.seg = p;          p += n;
+  c.epoch_start = p;  p += n;
+  c.attempt_t = p;    p += n;
+  c.ep_cnt = p;       p += n;
+  c.cs_cnt = p;       p += n;
+  c.window = reinterpret_cast<float*>(p);     p += n;
+  c.unit = reinterpret_cast<float*>(p);       p += n;
+  c.big = p;          p += n;
+  c.inter = p;        p += n;
+  c.slo_scale = reinterpret_cast<float*>(p);  p += n;
+  c.cs_dur = p;       p += n * s;
+  c.nc_dur = p;       p += n * s;
+  c.seg_lock = p;     p += s;
+  c.q = p;            p += 2 * l * n;
+  c.q_head = p;       p += 2 * l;
+  c.q_tail = p;       p += 2 * l;
+  c.holder = p;       p += l;
+  c.prop_ctr = p;     p += l;
+  c.wbuf = reinterpret_cast<float*>(p);
+}
+
+// Copy `count` 4-byte words between a warp's lanes.
+template <typename T>
+__device__ __forceinline__ void warp_copy(T* dst, const T* src, int count,
+                                          int lane) {
+#pragma unroll 1
+  for (int i = lane; i < count; i += 32) dst[i] = src[i];
 }
 
 // ---------------------------------------------------------------- RNG ----
@@ -166,8 +186,8 @@ __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
   return (x << r) | (x >> (32 - r));
 }
 
-__device__ void threefry2x32(uint32_t k0, uint32_t k1, uint32_t& x0,
-                             uint32_t& x1) {
+__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
+                                             uint32_t& x0, uint32_t& x1) {
   const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
   const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
   x0 += ks[0];
@@ -186,43 +206,51 @@ __device__ void threefry2x32(uint32_t k0, uint32_t k1, uint32_t& x0,
 }
 
 // jax.random.split(key): keep subkey 0 as the cell's key, return subkey 1.
-__device__ void advance_key(Cell& c, uint32_t& s0, uint32_t& s1) {
-  const uint32_t k0 = static_cast<uint32_t>(c.key[0]);
-  const uint32_t k1 = static_cast<uint32_t>(c.key[1]);
+__device__ __forceinline__ void advance_key(Cell& c, uint32_t& s0,
+                                            uint32_t& s1) {
   uint32_t n0 = 0, n1 = 0;
-  threefry2x32(k0, k1, n0, n1);
+  threefry2x32(c.k0, c.k1, n0, n1);
   s0 = 0;
   s1 = 1;
-  threefry2x32(k0, k1, s0, s1);
-  c.key[0] = static_cast<long long>(n0);
-  c.key[1] = static_cast<long long>(n1);
+  threefry2x32(c.k0, c.k1, s0, s1);
+  c.k0 = n0;
+  c.k1 = n1;
 }
 
 // jax.random.uniform(key): 23 random mantissa bits under exponent 0.
-__device__ float uniform01(uint32_t k0, uint32_t k1) {
+__device__ __forceinline__ float uniform01(uint32_t k0, uint32_t k1) {
   uint32_t y0 = 0, y1 = 0;
   threefry2x32(k0, k1, y0, y1);
   const uint32_t bits = ((y0 ^ y1) >> 9) | 0x3F800000u;
   return fmaxf(0.0f, __fsub_rn(__uint_as_float(bits), 1.0f));
 }
 
-// First index whose left-to-right f32 prefix sum exceeds u * total (0 when
-// none does); `any` is total > 0.
-__device__ int weighted_pick(uint32_t s0, uint32_t s1, const float* w, int n,
-                             bool& any) {
-  float cum[kMaxCores];
-  float acc = w[0];
-  cum[0] = acc;
-  for (int j = 1; j < n; ++j) {
-    acc = __fadd_rn(acc, w[j]);
-    cum[j] = acc;
+// First core whose left-to-right f32 prefix sum of the lanes' weights
+// `w` exceeds u * total (0 when none does); `any` is total > 0.  Every
+// lane runs the same serial sum over the weights in shared memory, eight
+// loads ahead of the adds, and keeps the partial at its own core; a
+// ballot then finds the first.  Lanes past the cores weigh +0, which
+// leaves a sum of non-negative weights unchanged.
+__device__ __forceinline__ int weighted_pick(Cell& c, float w, uint32_t s0,
+                                             uint32_t s1, bool& any) {
+  c.wbuf[c.lane] = c.lane < c.n ? w : 0.0f;
+  __syncwarp();
+  float acc = 0.0f, mine = 0.0f;
+  for (int j0 = 0; j0 < c.n; j0 += 8) {
+    float x[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) x[u] = c.wbuf[j0 + u];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      acc = j0 + u == 0 ? x[0] : __fadd_rn(acc, x[u]);
+      if (j0 + u == c.lane) mine = acc;
+    }
   }
   const float u = __fmul_rn(uniform01(s0, s1), acc);
   any = acc > 0.0f;
-  for (int j = 0; j < n; ++j) {
-    if (cum[j] > u) return j;
-  }
-  return 0;
+  const unsigned over = __ballot_sync(kFull, c.lane < c.n && mine > u);
+  __syncwarp();                 // wbuf is read before the next pick
+  return over ? __ffs(over) - 1 : 0;
 }
 
 // ------------------------------------------------------------ helpers ----
@@ -231,92 +259,94 @@ __device__ __forceinline__ int qlen(const Cell& c, int l, int b) {
   return c.q_tail[l * 2 + b] - c.q_head[l * 2 + b];
 }
 
-__device__ void enq(Cell& c, int l, int b, int core) {
+__device__ __forceinline__ void enq(Cell& c, int l, int b, int core) {
   const int i = l * 2 + b;
   const int tail = c.q_tail[i];
-  c.q[i * c.n + tail % c.n] = core;
+  c.q[i * c.n + mod(tail, c.mod_n)] = core;
   c.q_tail[i] = tail + 1;
 }
 
-__device__ int deq(Cell& c, int l, int b) {
+__device__ __forceinline__ int deq(Cell& c, int l, int b) {
   const int i = l * 2 + b;
   const int head = c.q_head[i];
   if (c.q_tail[i] <= head) return -1;
   c.q_head[i] = head + 1;
-  return c.q[i * c.n + head % c.n];
+  return c.q[i * c.n + mod(head, c.mod_n)];
 }
 
 __device__ __forceinline__ int lock_of(const Cell& c, int core) {
-  return c.seg_lock[c.seg[core]];
+  return c.lk[core];
+}
+
+// t_ready[core] = v: the lane of that core keeps it in a register.
+__device__ __forceinline__ void set_ready(Cell& c, int core, int v) {
+  if (c.lane == core) c.tr = v;
 }
 
 // Make `core` the holder of its segment's lock; schedule its release.
-__device__ void grant(Cell& c, int core, int t) {
-  const int s = c.seg[core];
-  c.holder[c.seg_lock[s]] = core;
+__device__ __forceinline__ void grant(Cell& c, int core, int t) {
+  c.holder[c.lk[core]] = core;
   c.phase[core] = kHolder;
-  c.t_ready[core] = t + c.cs_dur[core * c.s + s];
+  set_ready(c, core, t + c.cs_dur[core * c.s + c.seg[core]]);
 }
 
 __device__ __forceinline__ void park(Cell& c, int core, int ph) {
   c.phase[core] = ph;
-  c.t_ready[core] = kInf;
+  set_ready(c, core, kInf);
 }
 
-__device__ __forceinline__ void record(float* buf, int* cnt, int core,
-                                       int cap, float v) {
+// One latency sample into `core`'s ring (device memory, lane 0).
+__device__ __forceinline__ void record(const Cell& c, float* buf, int* cnt,
+                                       int core, float v) {
   const int k = cnt[core];
-  buf[static_cast<size_t>(core) * cap + k % cap] = v;
+  if (c.lane == 0)
+    buf[static_cast<size_t>(core) * c.cap + mod(k, c.mod_cap)] = v;
   cnt[core] = k + 1;
 }
 
 // ------------------------------------------------------------ handlers ---
 
-__device__ void acquire(Cell& c, int core, int t) {
+template <int P>
+__device__ __forceinline__ void acquire(Cell& c, int core, int t) {
   c.attempt_t[core] = t;
   const int l = lock_of(c, core);
   const bool free = c.holder[l] == -1;
-  switch (c.policy) {
-    case kFifo:
-      if (free && qlen(c, l, 0) == 0) {
-        grant(c, core, t);
-      } else {
-        enq(c, l, 0, core);
-        park(c, core, kQueued);
-      }
-      break;
-    case kTas:
-      if (free) {
-        grant(c, core, t);
-      } else {
-        park(c, core, kSpin);
-      }
-      break;
-    case kProp:
-      if (free && qlen(c, l, 0) == 0 && qlen(c, l, 1) == 0) {
-        grant(c, core, t);
-      } else {
-        enq(c, l, c.big[core] == 1 ? 0 : 1, core);
-        park(c, core, kQueued);
-      }
-      break;
-    case kLibasl:
-      if (free && qlen(c, l, 0) == 0) {
-        grant(c, core, t);
-      } else if (c.big[core] == 1) {
-        enq(c, l, 0, core);
-        park(c, core, kQueued);
-      } else {
-        // Little core: stand by for the (capped) reorder window.
-        const int win = static_cast<int>(fminf(c.window[core], c.max_window));
-        c.phase[core] = kStandby;
-        c.t_ready[core] = t + max(win, 0);
-      }
-      break;
+  if (P == kFifo) {
+    if (free && qlen(c, l, 0) == 0) {
+      grant(c, core, t);
+    } else {
+      enq(c, l, 0, core);
+      park(c, core, kQueued);
+    }
+  } else if (P == kTas) {
+    if (free) {
+      grant(c, core, t);
+    } else {
+      park(c, core, kSpin);
+    }
+  } else if (P == kProp) {
+    if (free && qlen(c, l, 0) == 0 && qlen(c, l, 1) == 0) {
+      grant(c, core, t);
+    } else {
+      enq(c, l, c.big[core] == 1 ? 0 : 1, core);
+      park(c, core, kQueued);
+    }
+  } else {  // kLibasl
+    if (free && qlen(c, l, 0) == 0) {
+      grant(c, core, t);
+    } else if (c.big[core] == 1) {
+      enq(c, l, 0, core);
+      park(c, core, kQueued);
+    } else {
+      // Little core: stand by for the (capped) reorder window.
+      const int win = static_cast<int>(fminf(c.window[core], c.max_window));
+      c.phase[core] = kStandby;
+      set_ready(c, core, t + max(win, 0));
+    }
   }
 }
 
-__device__ void standby_expiry(Cell& c, int core, int t) {
+__device__ __forceinline__ void standby_expiry(Cell& c, int core, int t) {
   const int l = lock_of(c, core);
   if (c.holder[l] == -1 && qlen(c, l, 0) == 0) {
     grant(c, core, t);
@@ -327,7 +357,7 @@ __device__ void standby_expiry(Cell& c, int core, int t) {
 }
 
 // Algorithm 2 (libasl, little cores, at an epoch end).
-__device__ void aimd(Cell& c, int core, float latency) {
+__device__ __forceinline__ void aimd(Cell& c, int core, float latency) {
   float w = c.window[core];
   float u = c.unit[core];
   if (latency > __fmul_rn(c.slo, c.slo_scale[core])) {
@@ -338,183 +368,293 @@ __device__ void aimd(Cell& c, int core, float latency) {
   c.unit[core] = u;
 }
 
-__device__ void pick_next(Cell& c, int l, int t) {
-  float w[kMaxCores];
-  uint32_t s0, s1;
-  bool any;
-  switch (c.policy) {
-    case kFifo:
-      if (qlen(c, l, 0) > 0) grant(c, deq(c, l, 0), t);
-      break;
-    case kTas: {
-      for (int j = 0; j < c.n; ++j) {
-        w[j] = (c.phase[j] == kSpin && lock_of(c, j) == l)
-                   ? (c.big[j] == 1 ? c.w_big : 1.0f)
-                   : 0.0f;
-      }
-      advance_key(c, s0, s1);
-      const int winner = weighted_pick(s0, s1, w, c.n, any);
-      if (any) grant(c, winner, t);
-      break;
+template <int P>
+__device__ __forceinline__ void pick_next(Cell& c, int l, int t) {
+  const int j = c.lane;
+  if (P == kFifo) {
+    if (qlen(c, l, 0) > 0) grant(c, deq(c, l, 0), t);
+  } else if (P == kTas) {
+    // Each lane weighs its own core.
+    const float w = (j < c.n && c.phase[j] == kSpin && lock_of(c, j) == l)
+                        ? (c.big[j] == 1 ? c.w_big : 1.0f)
+                        : 0.0f;
+    uint32_t s0, s1;
+    advance_key(c, s0, s1);
+    bool any;
+    const int winner = weighted_pick(c, w, s0, s1, any);
+    if (any) grant(c, winner, t);
+  } else if (P == kProp) {
+    const int nb = qlen(c, l, 0), nl = qlen(c, l, 1);
+    if (nb > 0 && (c.prop_ctr[l] < c.prop_n || nl == 0)) {
+      c.prop_ctr[l] += 1;
+      grant(c, deq(c, l, 0), t);
+    } else if (nl > 0) {
+      c.prop_ctr[l] = 0;
+      grant(c, deq(c, l, 1), t);
     }
-    case kProp: {
-      const int nb = qlen(c, l, 0), nl = qlen(c, l, 1);
-      if (nb > 0 && (c.prop_ctr[l] < c.prop_n || nl == 0)) {
-        c.prop_ctr[l] += 1;
-        grant(c, deq(c, l, 0), t);
-      } else if (nl > 0) {
-        c.prop_ctr[l] = 0;
-        grant(c, deq(c, l, 1), t);
-      }
-      break;
-    }
-    case kLibasl: {
-      const bool nonempty = qlen(c, l, 0) > 0;
-      if (nonempty) grant(c, deq(c, l, 0), t);
-      // Queue empty -> a standby core may grab the free lock.
-      for (int j = 0; j < c.n; ++j) {
-        w[j] = (c.phase[j] == kStandby && lock_of(c, j) == l) ? 1.0f : 0.0f;
-      }
-      advance_key(c, s0, s1);
-      const int pick = weighted_pick(s0, s1, w, c.n, any);
-      if (!nonempty && any) grant(c, pick, t);
-      break;
-    }
+  } else {  // kLibasl
+    const bool nonempty = qlen(c, l, 0) > 0;
+    if (nonempty) grant(c, deq(c, l, 0), t);
+    // Queue empty -> a standby core may grab the free lock.
+    const float w =
+        (j < c.n && c.phase[j] == kStandby && lock_of(c, j) == l) ? 1.0f
+                                                                  : 0.0f;
+    uint32_t s0, s1;
+    advance_key(c, s0, s1);
+    bool any;
+    const int pick = weighted_pick(c, w, s0, s1, any);
+    if (!nonempty && any) grant(c, pick, t);
   }
 }
 
-__device__ void release(Cell& c, int core, int t) {
+template <int P>
+__device__ __forceinline__ void release(Cell& c, int core, int t) {
   const int s = c.seg[core];
-  const int l = c.seg_lock[s];
-  record(c.cs_lat, c.cs_cnt, core, c.cap,
+  const int l = c.lk[core];
+  record(c, c.cs_lat, c.cs_cnt, core,
          static_cast<float>(t - c.attempt_t[core]));
   const bool last = s == c.s - 1;
   const float ep_latency = static_cast<float>(t - c.epoch_start[core]);
-  if (last) record(c.ep_lat, c.ep_cnt, core, c.cap, ep_latency);
-  if (c.policy == kLibasl && last && c.big[core] == 0) {
-    aimd(c, core, ep_latency);
-  }
+  if (last) record(c, c.ep_lat, c.ep_cnt, core, ep_latency);
+  if (P == kLibasl && last && c.big[core] == 0) aimd(c, core, ep_latency);
   const int inter = c.inter[core];
   if (last) {
     c.seg[core] = 0;
+    c.lk[core] = c.seg_lock[0];
     c.epoch_start[core] = t + inter;
-    c.t_ready[core] = t + inter + c.nc_dur[core * c.s];
+    set_ready(c, core, t + inter + c.nc_dur[core * c.s]);
   } else {
     c.seg[core] = s + 1;
-    c.t_ready[core] = t + c.nc_dur[core * c.s + min(s + 1, c.s - 1)];
+    c.lk[core] = c.seg_lock[s + 1];
+    set_ready(c, core, t + c.nc_dur[core * c.s + min(s + 1, c.s - 1)]);
   }
   c.phase[core] = kNonCrit;
   c.holder[l] = -1;
-  pick_next(c, l, t);
+  pick_next<P>(c, l, t);
 }
 
 // One event of one cell (the caller checked that the cell is live).
-__device__ void step(Cell& c, int core, int t) {
-  *c.t = t;
-  *c.events += 1;
+template <int P>
+__device__ __forceinline__ void step(Cell& c, int core, int t) {
   const int ph = c.phase[core];
   if (ph == kNonCrit) {
-    acquire(c, core, t);
+    acquire<P>(c, core, t);
   } else if (ph == kHolder) {
-    release(c, core, t);
+    release<P>(c, core, t);
   } else if (ph == kStandby) {
-    if (c.policy == kLibasl) standby_expiry(c, core, t);
+    if (P == kLibasl) standby_expiry(c, core, t);
   } else if (ph == kQueued || ph == kSpin) {
-    c.t_ready[core] = kInf;  // defensive re-park
+    set_ready(c, core, kInf);  // defensive re-park
   }
 }
 
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-    fused_chunk_kernel(const Args a) {
+template <typename T>
+__device__ __forceinline__ T* at(const Args& a, Operand k, size_t offset) {
+  return static_cast<T*>(a.p[k]) + offset;
+}
+
+template <int P>
+__global__ void __launch_bounds__(kMaxWarpsPerBlock * 32)
+    fused_chunk_kernel(const Args a, int warps_per_block) {
+  extern __shared__ int smem[];
   const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int w = threadIdx.x >> 5;
+  const int b = blockIdx.x * warps_per_block + w;
   if (b >= a.n_cells) return;  // uniform across the warp
-  Cell c = cell_of(a, b);
+  const int n = a.n, s = a.s, l = a.l;
+  const size_t cb = b, ns = static_cast<size_t>(n) * s;
+
+  // Live at launch start?  A cell that is not loads and stores no more.
+  int* g_t_ready = at<int>(a, kTReady, cb * n);
+  const int tr0 = lane < n ? g_t_ready[lane] : INT_MAX;
+  int events = *at<int>(a, kEvents, cb);
+  const int horizon = *at<int>(a, kHorizon, cb);
+  if (!(__reduce_min_sync(kFull, tr0) < horizon && events < a.max_events))
+    return;
+
+  Cell c;
+  carve(c, smem + w * cell_words(n, s, l), n, s, l);
+  c.lane = lane;
+  c.tr = tr0;
+  c.n = n;
+  c.s = s;
+  c.cap = a.cap;
+  c.mod_n = a.mod_n;
+  c.mod_cap = a.mod_cap;
+  c.unit_mul = a.unit_mul;
+  c.max_window = a.max_window;
+  c.slo = *at<float>(a, kSlo, cb);
+  c.w_big = *at<float>(a, kWBig, cb);
+  c.prop_n = *at<int>(a, kPropN, cb);
+  const long long* g_key = at<long long>(a, kKey, 2 * cb);
+  c.k0 = static_cast<uint32_t>(g_key[0]);
+  c.k1 = static_cast<uint32_t>(g_key[1]);
+  int t = *at<int>(a, kT, cb);
+  c.ep_lat = at<float>(a, kEpLat, cb * n * a.cap);
+  c.cs_lat = at<float>(a, kCsLat, cb * n * a.cap);
+
+  // Stage the cell: every load of a pass is issued before its stores, so
+  // each pass costs one round trip to device memory.
+  const size_t cn = cb * n, cl = cb * l, cq = cb * 2 * l;
+  if (lane < n) {
+    const int phase = at<int>(a, kPhase, cn)[lane];
+    const int seg = at<int>(a, kSeg, cn)[lane];
+    const int epoch_start = at<int>(a, kEpochStart, cn)[lane];
+    const int attempt_t = at<int>(a, kAttemptT, cn)[lane];
+    const int ep_cnt = at<int>(a, kEpCnt, cn)[lane];
+    const int cs_cnt = at<int>(a, kCsCnt, cn)[lane];
+    const float window = at<float>(a, kWindow, cn)[lane];
+    const float unit = at<float>(a, kUnit, cn)[lane];
+    const int big = at<int>(a, kBig, cn)[lane];
+    const int inter = at<int>(a, kInter, cn)[lane];
+    const float slo_scale = at<float>(a, kSloScale, cn)[lane];
+    c.phase[lane] = phase;
+    c.seg[lane] = seg;
+    c.epoch_start[lane] = epoch_start;
+    c.attempt_t[lane] = attempt_t;
+    c.ep_cnt[lane] = ep_cnt;
+    c.cs_cnt[lane] = cs_cnt;
+    c.window[lane] = window;
+    c.unit[lane] = unit;
+    c.big[lane] = big;
+    c.inter[lane] = inter;
+    c.slo_scale[lane] = slo_scale;
+  }
+  const int* g_cs_dur = at<int>(a, kCsDur, cb * ns);
+  const int* g_nc_dur = at<int>(a, kNcDur, cb * ns);
+  const int* g_seg_lock = at<int>(a, kSegLock, cb * s);
+  const int* g_q = at<int>(a, kQ, cq * n);
+  const int* g_q_head = at<int>(a, kQHead, cq);
+  const int* g_q_tail = at<int>(a, kQTail, cq);
+  const int* g_holder = at<int>(a, kHolderOp, cl);
+  const int* g_prop_ctr = at<int>(a, kPropCtr, cl);
+  const int n_ns = n * s, n_q = 2 * l * n;
+#pragma unroll 1
+  for (int i = lane; i < max(n_ns, n_q); i += 32) {
+    const int cs = i < n_ns ? g_cs_dur[i] : 0;
+    const int nc = i < n_ns ? g_nc_dur[i] : 0;
+    const int sl = i < s ? g_seg_lock[i] : 0;
+    const int qv = i < n_q ? g_q[i] : 0;
+    const int qh = i < 2 * l ? g_q_head[i] : 0;
+    const int qt = i < 2 * l ? g_q_tail[i] : 0;
+    const int ho = i < l ? g_holder[i] : 0;
+    const int pc = i < l ? g_prop_ctr[i] : 0;
+    if (i < n_ns) {
+      c.cs_dur[i] = cs;
+      c.nc_dur[i] = nc;
+    }
+    if (i < s) c.seg_lock[i] = sl;
+    if (i < n_q) c.q[i] = qv;
+    if (i < 2 * l) {
+      c.q_head[i] = qh;
+      c.q_tail[i] = qt;
+    }
+    if (i < l) {
+      c.holder[i] = ho;
+      c.prop_ctr[i] = pc;
+    }
+  }
+  __syncwarp();
+  if (lane < n) c.lk[lane] = c.seg_lock[c.seg[lane]];
+  __syncwarp();
+
   for (int it = 0; it < a.chunk; ++it) {
     // Head of the event clock: min t_ready, lowest core on ties.
-    int tr = lane < c.n ? c.t_ready[lane] : INT_MAX;
-    int idx = lane;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const int o_tr = __shfl_down_sync(0xffffffffu, tr, off);
-      const int o_idx = __shfl_down_sync(0xffffffffu, idx, off);
-      if (o_tr < tr || (o_tr == tr && o_idx < idx)) {
-        tr = o_tr;
-        idx = o_idx;
-      }
-    }
-    const int t = __shfl_sync(0xffffffffu, tr, 0);
-    const int core = __shfl_sync(0xffffffffu, idx, 0);
-    if (!(t < c.horizon && *c.events < c.max_events)) break;
-    if (lane == 0) step(c, core, t);
+    const int tr = lane < n ? c.tr : INT_MAX;
+    const int t_min = __reduce_min_sync(kFull, tr);
+    if (!(t_min < horizon && events < a.max_events)) break;
+    const int core = __ffs(__ballot_sync(kFull, tr == t_min)) - 1;
+    t = t_min;
+    events += 1;
+    step<P>(c, core, t);
     __syncwarp();
   }
+
+  // Write the mutable state back once.
+  if (lane < n) g_t_ready[lane] = c.tr;
+  warp_copy(at<int>(a, kPhase, cn), c.phase, n, lane);
+  warp_copy(at<int>(a, kSeg, cn), c.seg, n, lane);
+  warp_copy(at<int>(a, kEpochStart, cn), c.epoch_start, n, lane);
+  warp_copy(at<int>(a, kAttemptT, cn), c.attempt_t, n, lane);
+  warp_copy(at<int>(a, kEpCnt, cn), c.ep_cnt, n, lane);
+  warp_copy(at<int>(a, kCsCnt, cn), c.cs_cnt, n, lane);
+  warp_copy(at<float>(a, kWindow, cn), c.window, n, lane);
+  warp_copy(at<float>(a, kUnit, cn), c.unit, n, lane);
+  warp_copy(at<int>(a, kQ, cq * n), c.q, 2 * l * n, lane);
+  warp_copy(at<int>(a, kQHead, cq), c.q_head, 2 * l, lane);
+  warp_copy(at<int>(a, kQTail, cq), c.q_tail, 2 * l, lane);
+  warp_copy(at<int>(a, kHolderOp, cl), c.holder, l, lane);
+  warp_copy(at<int>(a, kPropCtr, cl), c.prop_ctr, l, lane);
+  if (lane == 0) {
+    *at<int>(a, kT, cb) = t;
+    *at<int>(a, kEvents, cb) = events;
+    long long* key = at<long long>(a, kKey, 2 * cb);
+    key[0] = static_cast<long long>(c.k0);
+    key[1] = static_cast<long long>(c.k1);
+  }
+}
+
+template <int P>
+int launch(const Args& a, cudaStream_t stream) {
+  const int bytes = 4 * cell_words(a.n, a.s, a.l);
+  if (bytes > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  const int warps = min(kMaxWarpsPerBlock, kSmemLimit / bytes);
+  const int smem = warps * bytes;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fused_chunk_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int blocks = (a.n_cells + warps - 1) / warps;
+  fused_chunk_kernel<P><<<blocks, warps * 32, smem, stream>>>(a, warps);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// Advance every cell by up to `chunk` events on `stream`.  Returns the
-// cudaError_t of the launch (0 = success); the caller raises on anything
-// else.  Pointers are device pointers into contiguous cell-major tensors.
-int simstep_fused_chunk(
-    const void* big, const void* cs_dur, const void* nc_dur,
-    const void* inter, const void* seg_lock, const void* slo_scale,
-    const void* slo, const void* w_big, const void* prop_n,
-    const void* horizon, void* t, void* key, void* phase, void* t_ready,
-    void* seg, void* epoch_start, void* attempt_t, void* window, void* unit,
-    void* q, void* q_head, void* q_tail, void* holder, void* prop_ctr,
-    void* ep_lat, void* ep_cnt, void* cs_lat, void* cs_cnt, void* events,
-    int n_cells, int n, int s, int l, int cap, int policy, int chunk,
-    int max_events, float unit_mul, float max_window, int device,
-    void* stream) {
+// Shared memory of one cell, in bytes: the wrapper raises by name where a
+// shape does not fit one block.
+int simstep_cell_bytes(int n, int s, int l) { return 4 * cell_words(n, s, l); }
+
+// Advance every cell by up to `chunk` events on `stream`.  `operands`
+// holds the 29 device pointers (tables, params, state; the wrapper's
+// _ORDER) into contiguous cell-major tensors; `ints` holds n_cells, n, s,
+// l, cap, policy, chunk, max_events; `floats` the AIMD unit factor and
+// the window cap.  Returns the cudaError_t of the launch (0 = success);
+// the caller raises on anything else.
+int simstep_fused_chunk(void* const* operands, const int* ints,
+                        const float* floats, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   Args a;
-  a.big = static_cast<const int*>(big);
-  a.cs_dur = static_cast<const int*>(cs_dur);
-  a.nc_dur = static_cast<const int*>(nc_dur);
-  a.inter = static_cast<const int*>(inter);
-  a.seg_lock = static_cast<const int*>(seg_lock);
-  a.slo_scale = static_cast<const float*>(slo_scale);
-  a.slo = static_cast<const float*>(slo);
-  a.w_big = static_cast<const float*>(w_big);
-  a.prop_n = static_cast<const int*>(prop_n);
-  a.horizon = static_cast<const int*>(horizon);
-  a.t = static_cast<int*>(t);
-  a.key = static_cast<long long*>(key);
-  a.phase = static_cast<int*>(phase);
-  a.t_ready = static_cast<int*>(t_ready);
-  a.seg = static_cast<int*>(seg);
-  a.epoch_start = static_cast<int*>(epoch_start);
-  a.attempt_t = static_cast<int*>(attempt_t);
-  a.window = static_cast<float*>(window);
-  a.unit = static_cast<float*>(unit);
-  a.q = static_cast<int*>(q);
-  a.q_head = static_cast<int*>(q_head);
-  a.q_tail = static_cast<int*>(q_tail);
-  a.holder = static_cast<int*>(holder);
-  a.prop_ctr = static_cast<int*>(prop_ctr);
-  a.ep_lat = static_cast<float*>(ep_lat);
-  a.ep_cnt = static_cast<int*>(ep_cnt);
-  a.cs_lat = static_cast<float*>(cs_lat);
-  a.cs_cnt = static_cast<int*>(cs_cnt);
-  a.events = static_cast<int*>(events);
-  a.n_cells = n_cells;
-  a.n = n;
-  a.s = s;
-  a.l = l;
-  a.cap = cap;
-  a.policy = policy;
-  a.chunk = chunk;
-  a.max_events = max_events;
-  a.unit_mul = unit_mul;
-  a.max_window = max_window;
-  const int blocks = (n_cells + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  fused_chunk_kernel<<<blocks, kWarpsPerBlock * 32, 0,
-                       static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  for (int k = 0; k < kNumOperands; ++k) a.p[k] = operands[k];
+  a.n_cells = ints[0];
+  a.n = ints[1];
+  a.s = ints[2];
+  a.l = ints[3];
+  a.cap = ints[4];
+  a.chunk = ints[6];
+  a.max_events = ints[7];
+  a.unit_mul = floats[0];
+  a.max_window = floats[1];
+  a.mod_n = fast_mod(static_cast<unsigned>(a.n));
+  a.mod_cap = fast_mod(static_cast<unsigned>(a.cap));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (ints[5]) {
+    case kFifo:
+      return launch<kFifo>(a, st);
+    case kTas:
+      return launch<kTas>(a, st);
+    case kProp:
+      return launch<kProp>(a, st);
+    case kLibasl:
+      return launch<kLibasl>(a, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 const char* simstep_error_string(int code) {

@@ -110,6 +110,55 @@ def decode_attention_ref(q, k_cache, v_cache, lengths, starts=None):
     return out.reshape(b, h, dh).to(q.dtype)
 
 
+def decode_split_ranges(lengths, t: int, splits: int):
+    """(j0, j1) [B, splits] int64: the run positions ``[j0, j1)`` each
+    split of row b takes in ``csrc/decode_attention.cu``, ``per =
+    ceil(len / splits)`` of them from ``split x per``, len clamped to
+    ``[0, t]``."""
+    n = torch.clamp(lengths.long(), 0, t)[:, None]
+    per = (n + splits - 1) // splits
+    j0 = torch.minimum(n, torch.arange(splits, device=n.device) * per)
+    return j0, torch.minimum(n, j0 + per)
+
+
+def decode_attention_split_ref(q, k_cache, v_cache, lengths, starts=None,
+                               *, splits: int):
+    """:func:`decode_attention_ref` as ``csrc/decode_attention.cu``
+    computes it.  Each row's run is split ``splits`` ways
+    (:func:`decode_split_ranges`); per split s, in f32, the max ``m_s`` of
+    the scaled scores over its positions, ``l_s = sum exp(s - m_s)`` and
+    ``acc_s = sum exp(s - m_s) v`` (a split with no position: ``m_s =
+    -1e30``, ``l_s = 0``, ``acc_s = 0``); then the merge in split order,
+    ``o = sum_s w_s acc_s / max(sum_s w_s l_s, 1e-30)`` with ``w_s =
+    exp(m_s - max_s m_s)``.  A row of length 0 gives zeros."""
+    b, h, dh = q.shape
+    kh, t = k_cache.shape[1], k_cache.shape[2]
+    g = h // kh
+    j0, j1 = decode_split_ranges(lengths.to(q.device), t, splits)
+    qf = q.float().reshape(b, kh, g, dh)
+    scores = torch.einsum("bkgd,bktd->bkgt", qf, k_cache.float()) \
+        / float(np.sqrt(dh))
+    pos = torch.arange(t, device=q.device)[None, :]              # slot
+    if starts is not None:
+        pos = torch.remainder(pos - starts.to(q.device)[:, None], t)
+    # [B,1,S,1,T]: the slot is one of split s's run positions
+    take = ((pos[:, None, :] >= j0[:, :, None])
+            & (pos[:, None, :] < j1[:, :, None]))[:, None, :, None, :]
+    s = scores[:, :, None].masked_fill(~take, -1e30)            # [B,K,S,g,T]
+    m = s.amax(dim=-1)                                           # [B,K,S,g]
+    p = torch.exp(s - m[..., None]) * take
+    acc = torch.einsum("bksgt,bktd->bksgd", p, v_cache.float())
+    l = p.sum(dim=-1)
+    w = torch.exp(m - m.amax(dim=2, keepdim=True))
+    big_l = torch.zeros_like(m[:, :, 0])
+    out = torch.zeros_like(acc[:, :, 0])
+    for i in range(splits):
+        big_l = big_l + w[:, :, i] * l[:, :, i]
+        out = out + w[:, :, i, :, None] * acc[:, :, i]
+    out = out / torch.clamp_min(big_l, 1e-30)[..., None]
+    return out.reshape(b, h, dh).to(q.dtype)
+
+
 def softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus``: ``logaddexp(x, 0)`` (not ``F.softplus``, which
     switches to ``x`` above 20 and rounds differently below)."""

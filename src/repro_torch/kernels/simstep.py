@@ -12,6 +12,10 @@ anything the kernel does not take; it never falls back.  On CPU tensors it
 runs :func:`fused_chunk_ref`, the plain PyTorch version, which applies the
 port's masked step ``chunk`` times.  ``fused_chunk.launches`` counts the
 kernel launches.
+
+:func:`bind` checks the operands once and returns a function that
+launches one chunk with them: ``simulate`` uses it, so a sweep's hundreds
+of launches are not each checked again.
 """
 
 from __future__ import annotations
@@ -86,28 +90,40 @@ _ORDER = ("big", "cs_dur", "nc_dur", "inter", "seg_lock", "slo_scale",
           "cs_lat", "cs_cnt", "events")
 
 
+_SMEM_LIMIT = 232_448                # dynamic shared memory of one block
+
+
+def cell_bytes(n: int, s: int, l: int) -> int:
+    """Shared memory one cell takes in the kernel (``csrc/simstep.cu``:
+    its per-core state and tables, queues, holders and 32 pick weights),
+    for ``n`` cores, ``s`` segments and ``l`` locks."""
+    return 4 * (12 * n + 2 * n * s + s + 2 * l * n + 6 * l + 32)
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load("simstep")
     fn = lib.simstep_fused_chunk
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * len(_ORDER) + [ctypes.c_int] * 8
-                       + [ctypes.c_float] * 2 + [ctypes.c_int,
-                                                 ctypes.c_void_p])
+        fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
+                       ctypes.POINTER(ctypes.c_int),
+                       ctypes.POINTER(ctypes.c_float), ctypes.c_int,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.simstep_error_string.argtypes = [ctypes.c_int]
         lib.simstep_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def fused_chunk(tables, params, state, chunk: int, cfg):
-    """Advance every cell of ``state`` by up to ``chunk`` events, in place.
-
-    CUDA tensors launch the kernel (or raise); CPU tensors run
-    :func:`fused_chunk_ref`.  Returns ``state``."""
+def bind(tables, params, state, chunk: int, cfg):
+    """Check the operands once; return a function of no arguments that
+    advances every cell of ``state`` by up to ``chunk`` events, in place:
+    the kernel on CUDA tensors (on the stream current now), the plain
+    version on CPU tensors.  Raises on anything the kernel does not
+    take."""
     ts, (b, n, s, l, cap) = _operands(tables, params, state, cfg)
     dev = state.t.device
     if dev.type == "cpu":
-        return fused_chunk_ref(tables, params, state, chunk, cfg)
+        return lambda: fused_chunk_ref(tables, params, state, chunk, cfg)
     if dev.type != "cuda":
         raise ValueError(f"the simstep kernel runs on CUDA tensors, "
                          f"not {dev}")
@@ -119,22 +135,42 @@ def fused_chunk(tables, params, state, chunk: int, cfg):
     if not 1 <= n <= _MAX_CORES:
         raise ValueError(f"the simstep kernel runs 1..{_MAX_CORES} cores "
                          f"per cell (one warp lane each), got {n}")
+    if cell_bytes(n, s, l) > _SMEM_LIMIT:
+        raise ValueError(f"a cell of {n} cores, {s} segments and {l} locks "
+                         f"takes {cell_bytes(n, s, l)} bytes of shared "
+                         f"memory, over one block's {_SMEM_LIMIT}")
     from repro_torch.core.aimd import unit_factor
     from repro_torch.core.policies.base import ticks
     lib = _lib()
+    fn = lib.simstep_fused_chunk
+    ptrs = (ctypes.c_void_p * len(_ORDER))(*(ts[k].data_ptr()
+                                             for k in _ORDER))
+    ints = (ctypes.c_int * 8)(b, n, s, l, cap, _POLICY_IDS[cfg.policy],
+                              int(chunk), int(cfg.max_events))
+    # The two f32 constants of Algorithm 2: the unit factor and the cap.
+    floats = (ctypes.c_float * 2)(float(unit_factor(cfg.pct)),
+                                  float(ticks(cfg.max_window_us)))
     index = dev.index if dev.index is not None else \
         torch.cuda.current_device()
-    # The two f32 constants of Algorithm 2: the unit factor and the cap.
-    err = lib.simstep_fused_chunk(
-        *(ts[k].data_ptr() for k in _ORDER),
-        b, n, s, l, cap, _POLICY_IDS[cfg.policy], int(chunk),
-        int(cfg.max_events), float(unit_factor(cfg.pct)),
-        float(ticks(cfg.max_window_us)), index,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError("simstep kernel launch failed: "
-                           + lib.simstep_error_string(err).decode())
-    fused_chunk.launches += 1
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch():
+        err = fn(ptrs, ints, floats, index, stream)
+        if err != 0:
+            raise RuntimeError("simstep kernel launch failed: "
+                               + lib.simstep_error_string(err).decode())
+        fused_chunk.launches += 1
+
+    return launch
+
+
+def fused_chunk(tables, params, state, chunk: int, cfg):
+    """Advance every cell of ``state`` by up to ``chunk`` events, in place.
+
+    CUDA tensors launch the kernel (or raise); CPU tensors run
+    :func:`fused_chunk_ref`.  Every call checks its operands.  Returns
+    ``state``."""
+    bind(tables, params, state, chunk, cfg)()
     return state
 
 
