@@ -3,6 +3,8 @@ device, and there is no silent CPU fallback."""
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -17,3 +19,10 @@ def resolve(device=None) -> torch.device:
                 "version on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The streaming multiprocessors of CUDA device ``index`` (the kernels'
+    launch plans size their grids by it)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

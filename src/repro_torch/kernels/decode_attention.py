@@ -31,6 +31,7 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch.device import sm_count as _sm_count
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import decode_attention_ref
 
@@ -57,11 +58,6 @@ def plan_splits(b: int, kh: int, t: int, g: int, dh: int, esize: int,
     by_rows = max(1, t // MIN_SPLIT_ROWS)
     by_scratch = (2 * t * dh * esize) // (4 * g * (dh + 2))
     return max(1, min(want, by_rows, by_scratch, MAX_SPLITS))
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @functools.lru_cache(maxsize=256)

@@ -52,10 +52,10 @@ def decode_attention(q, k_cache, v_cache, lengths, starts=None):
 
 def mlstm_scan(q, k, v, i_gate, f_gate, carry=None):
     """q,k,v: [B,H,S,dh]; gates: [B,H,S] -> (h [B,H,S,dh], (C, n, m)).
-    Gates are taken in f32 and every operand contiguous, as the kernel
-    takes them."""
-    q, k, v = (t.contiguous() for t in (q, k, v))
-    i_gate, f_gate = (t.float().contiguous() for t in (i_gate, f_gate))
+    Strided views are taken as they are (the head dim contiguous): the
+    model's [B,S,H,dh] q, k, v and [B,S,H] gates arrive transposed, not
+    copied.  Gates and the carry are taken in f32, the carry contiguous."""
+    i_gate, f_gate = i_gate.float(), f_gate.float()
     if carry is not None:
         carry = tuple(t.float().contiguous() for t in carry)
     return _mlstm.mlstm_scan(q, k, v, i_gate, f_gate, carry)

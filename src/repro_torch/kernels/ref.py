@@ -232,3 +232,80 @@ def mlstm_scan_ref(q, k, v, i_gate, f_gate, carry=None):
         hs.append(num / torch.clamp_min(den, 1.0))
         m = m_new
     return torch.stack(hs, dim=2).to(q.dtype), (C, n, m)
+
+
+def _adjacent_pairs(p: torch.Tensor) -> torch.Tensor:
+    """Sum the last axis (a power of two long) in adjacent pairs, level by
+    level: the order of shuffles xor 1, 2, 4, ... across lanes."""
+    while p.shape[-1] > 1:
+        p = p[..., 0::2] + p[..., 1::2]
+    return p[..., 0]
+
+
+def _in_order(terms) -> torch.Tensor:
+    """Left-to-right sum of the products in ``terms``, one rounding each."""
+    acc = None
+    for t in terms:
+        acc = t if acc is None else acc + t
+    return acc
+
+
+def mlstm_scan_rows_ref(q, k, v, i_gate, f_gate, carry=None, *,
+                        row_block=32, col_groups=4):
+    """:func:`mlstm_scan_ref` as ``csrc/mlstm_scan.cu`` computes it.  Each
+    head's rows are split into blocks of ``row_block``; each block runs the
+    gates' scalars and all of n itself and updates its rows of C in the
+    reference's order (f32, each product and sum rounded on its own).  The
+    two sums take the kernel's order:
+
+    * ``(C q)_i``: lane g of ``col_groups`` keeps four partial sums
+      ``p_e``, each over its columns ``4 G c + 4 g + e`` in the order of c,
+      and adds them as ``(p0 + p1) + (p2 + p3)``; the lanes then combine in
+      adjacent pairs.
+    * ``n . q``: lane l of 32 sums ``n_j q_j`` over ``j = l, l + 32, ...``;
+      the 32 lanes then combine in adjacent pairs.
+
+    Shapes and carry as :func:`mlstm_scan_ref`; dh a multiple of 32, of
+    ``row_block`` and of ``4 col_groups``."""
+    b, h, s, dh = q.shape
+    g = col_groups
+    if dh % 32 or dh % row_block or dh % (4 * g):
+        raise ValueError(f"head_dim {dh} does not split into blocks of "
+                         f"{row_block} rows and {g} groups of 4 columns")
+    if carry is None:
+        C0 = torch.zeros((b, h, dh, dh), dtype=torch.float32, device=q.device)
+        n0 = torch.zeros((b, h, dh), dtype=torch.float32, device=q.device)
+        m0 = torch.full((b, h), -1e30, dtype=torch.float32, device=q.device)
+    else:
+        C0, n0, m0 = (t.float() for t in carry)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    ig, fg = i_gate.float(), f_gate.float()
+    hs = torch.empty((b, h, s, dh), dtype=torch.float32, device=q.device)
+    C_out = torch.empty_like(C0)
+    for r0 in range(0, dh, row_block):
+        rows = slice(r0, r0 + row_block)
+        C, n, m = C0[:, :, rows], n0, m0
+        for t in range(s):
+            qt, kt, vt = qf[:, :, t], kf[:, :, t], vf[:, :, t]
+            log_f = -softplus(-fg[:, :, t])
+            m_new = torch.maximum(log_f + m, ig[:, :, t])
+            i_p = torch.exp(ig[:, :, t] - m_new)[..., None]
+            f_p = torch.exp(log_f + m - m_new)[..., None]
+            C = f_p[..., None] * C + i_p[..., None] * (
+                vt[..., rows, None] * kt[..., None, :])
+            n = f_p * n + i_p * kt
+            # [B,H,rows,dh/(4G),G,4] and [B,H,1,dh/(4G),G,4]: lane g's
+            # columns, in its order.
+            Cg = C.reshape(b, h, row_block, dh // (4 * g), g, 4)
+            qg = qt.reshape(b, h, 1, dh // (4 * g), g, 4)
+            p = [_in_order(Cg[..., c, :, e] * qg[..., c, :, e]
+                           for c in range(dh // (4 * g))) for e in range(4)]
+            num = _adjacent_pairs((p[0] + p[1]) + (p[2] + p[3]))
+            nl, ql = n.reshape(b, h, dh // 32, 32), qt.reshape(b, h,
+                                                               dh // 32, 32)
+            den = torch.abs(_adjacent_pairs(_in_order(
+                nl[..., j, :] * ql[..., j, :] for j in range(dh // 32))))
+            hs[:, :, t, rows] = num / torch.clamp_min(den, 1.0)[..., None]
+            m = m_new
+        C_out[:, :, rows] = C
+    return hs.to(q.dtype), (C_out, n, m)

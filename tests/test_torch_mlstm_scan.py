@@ -8,9 +8,11 @@ Inputs are made with numpy from a seed and handed to both packages.
 Tolerances: h within ``TOL`` of ``tests/test_kernels.py`` (3e-5 in f32,
 2e-2 in bf16, absolute and relative: the two sides' exp / log1p differ
 in ulps and a bf16 h rounds once); the final carry in f32 within 1e-4
-(C, n) and 1e-5 (m), as the JAX kernel test holds it.  The CUDA kernel
-itself is held against this plain version on the card by
-``chip_smoke.py``."""
+(C, n) and 1e-5 (m), as the JAX kernel test holds it.  The plain form of
+the CUDA kernel's order of summation (``mlstm_scan_rows_ref``: rows split
+over blocks, (C q)_i and n . q summed as the kernel's lanes sum them) is
+held to both within the same bars.  The CUDA kernel itself is held
+against the plain version on the card by ``chip_smoke.py``."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -110,17 +112,41 @@ def test_cpu_runs_the_plain_version_and_counts_no_launch():
     assert all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
 
 
-def test_ops_dispatch_takes_the_model_layout():
-    """The dispatch makes the operands contiguous and the gates f32, and
-    sends every S (1 included) to the wrapper: no detour to an oracle."""
-    args, carry = _inputs(2, 2, 1, 32, True)
-    q, k, v, ig, fg = (torch.from_numpy(x) for x in args)
-    c = tuple(torch.from_numpy(x) for x in carry)
-    qt = q.transpose(0, 1).contiguous().transpose(0, 1)   # non-contiguous
-    assert not qt.is_contiguous()
-    got = ops.mlstm_scan(qt, k, v, ig.double(), fg.double(), c)
-    want = ms.mlstm_scan_ref(q, k, v, ig, fg, c)
-    assert torch.equal(got[0], want[0])
+def test_ops_dispatch_takes_the_model_layout(monkeypatch):
+    """The dispatch hands the model's [B,S,H,dh] q, k, v and [B,S,H]
+    gates to the wrapper as transposed views, not copies (the gates cast
+    to f32), for every S (1 included): no detour to an oracle.  The
+    kernel's stride array is made from those views, and h comes back laid
+    out like q."""
+    for s in (1, 5):
+        args, carry = _inputs(2, 2, s, 32, True)
+        q, k, v, ig, fg = (torch.from_numpy(x) for x in args)
+        c = tuple(torch.from_numpy(x) for x in carry)
+        model = [t.transpose(1, 2).contiguous() for t in (q, k, v, ig, fg)]
+        views = [t.transpose(1, 2) for t in model]
+        assert s == 1 or not any(t.is_contiguous() for t in views)
+        seen = {}
+        real = ms.mlstm_scan
+        monkeypatch.setattr(ms, "mlstm_scan", lambda *a: seen.update(
+            args=a) or real(*a))
+        got = ops.mlstm_scan(*views[:3], views[3].double(), views[4], c)
+        monkeypatch.undo()
+        passed = seen["args"]
+        assert [t.data_ptr() for t in passed[:3]] == \
+            [t.data_ptr() for t in model[:3]]
+        assert passed[4].data_ptr() == model[4].data_ptr()
+        want = ms.mlstm_scan_ref(q, k, v, ig, fg, c)
+        assert torch.equal(got[0], want[0])
+        assert all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
+        b, h, dh = 2, 2, 32
+        if s > 1:
+            assert views[0].stride() == (s * h * dh, dh, h * dh, 1)
+            assert views[3].stride() == (s * h, 1, h)
+        out = torch.empty_like(views[0])
+        tensors = (*views[:3], out, *views[3:])
+        strides = ms._layout(b, h, s, dh, 4, *(t.stride() for t in tensors))
+        assert list(strides) == [x for t in tensors for x in t.stride()[:3]]
+        assert s == 1 or out.stride() == views[0].stride()
 
 
 @pytest.mark.parametrize("case", ["dtype", "gate_dtype", "contiguous",
@@ -155,7 +181,49 @@ def test_wrapper_never_falls_back_off_the_cpu():
 
 
 def test_shared_memory_fits_head_dim_192():
-    """xlstm-125m's heads (dh = 192) fit one block's shared memory; a head
-    too wide for it is refused."""
-    assert 48 * 1024 < ms.smem_bytes(192) <= 232_448
-    assert ms.smem_bytes(256) > 232_448
+    """xlstm-125m's heads (dh = 192, B x H = 32 at the serving shapes)
+    split over at least one block per H100 SM, each within one block's
+    shared memory; a head dim the kernel is not built for is refused."""
+    for s in (256, 1):
+        plan = ms.launch_plan(8, 4, s, 192, 4)
+        assert plan.blocks >= 132
+        assert plan.smem <= 232_448
+    with pytest.raises(ValueError, match="head dims"):
+        ms._layout(1, 1, 4, 96, 4, *[(384, 384, 96, 1)] * 4,
+                   *[(4, 4, 1)] * 2)
+
+
+@pytest.mark.parametrize("b,h,s,dh,with_carry,block_s", SHAPES)
+def test_rows_form_matches_pallas_and_oracle(b, h, s, dh, with_carry,
+                                             block_s):
+    """The plain form of the kernel's summation order, with and without a
+    carry, against the Pallas kernel in interpret mode and the port's
+    plain version, within TOL (f32)."""
+    args, carry = _inputs(b, h, s, dh, with_carry, seed=7)
+    qkv = [torch.from_numpy(x) for x in args[:3]]
+    gates = [torch.from_numpy(x) for x in args[3:]]
+    c = None if carry is None else tuple(torch.from_numpy(x) for x in carry)
+    hs, (C, n, m) = ms.mlstm_scan_rows_ref(*qkv, *gates, c,
+                                           row_block=ms.ROWS,
+                                           col_groups=ms.COL_GROUPS)
+    got = (hs.numpy(), (C.numpy(), n.numpy(), m.numpy()))
+    _assert_close(got, _port(args, carry, torch.float32), "float32")
+    want = _jax(lambda *a: pallas_mlstm_scan(*a, block_s=block_s,
+                                             interpret=True),
+                args, carry, jnp.float32)
+    _assert_close(got, want, "float32")
+
+
+@pytest.mark.parametrize("b,h,s,dh,blocks,steps,smem", [
+    (8, 4, 256, 192, 192, 16, 55_552),     # xlstm-125m serving prefill
+    (8, 4, 1, 192, 192, 1, 3_488),         # and decode from a carry
+    (2, 4, 17, 32, 8, 16, 14_592),
+])
+def test_launch_plan_at_the_serving_shapes(b, h, s, dh, blocks, steps, smem):
+    """dh / 32 blocks a head, 128 threads, a double-buffered ring of
+    min(16, S) steps; the plan is cached with the checked strides."""
+    plan = ms.launch_plan(b, h, s, dh, 4)
+    assert plan == ms.Plan(blocks, 128, 32, 2, steps, smem)
+    dense = [(h * s * dh, s * dh, dh, 1)] * 4 + [(h * s, s, 1)] * 2
+    first = ms._layout(b, h, s, dh, 4, *dense)
+    assert ms._layout(b, h, s, dh, 4, *dense) is first

@@ -3,10 +3,11 @@ autograd, whose backward there is the plain reverse loop
 ``rglru_scan_bwd_ref``) against the JAX package: ``jax.grad`` through its
 oracle ``repro.kernels.ref.rglru_scan_ref`` (a ``lax.scan``), with and
 without h0, and through the model's ``jax.lax.associative_scan`` mixer
-(``repro/models/rglru.py:93-98``), which has no h0.  Also, exactly: the
-reversed-scan form that the CUDA path runs (``reverse_scan_vjp``, here
-over the plain scan) equals the plain reverse loop bit for bit, as
-``chip_smoke.py`` holds the kernel path to it on the card.
+(``repro/models/rglru.py:93-98``), which has no h0.  Also the backward's
+plain form ``rglru_scan_bwd_ref`` (g in f32, rounded only where da and dx
+are stored), which the CUDA backward kernel equals bit for bit on the
+card (``chip_smoke.py``), in f32 and bf16: against ``jax.grad`` of the
+oracle, and ``ops.rglru_scan``'s CPU backward against it exactly.
 
 Inputs are made with numpy from a seed: a = sigmoid(normal) in (0, 1), as
 the model makes it.  Tolerance in f32: 2e-6 absolute and relative for
@@ -14,7 +15,10 @@ the ``lax.scan`` oracle and 1e-5 for the associative scan.  XLA contracts
 ``a * h + x`` (and its transpose) into fused multiply-adds where the port
 rounds the product and the sum separately, and the associative scan
 combines in another order: about one ulp a step, damped by ``a < 1``
-(ROADMAP C, "Scan order and FMA")."""
+(ROADMAP C, "Scan order and FMA").  In bf16 2e-2 (``TOL`` of
+``tests/test_kernels.py``), against ``jax.grad`` in f32 of the
+bf16-rounded inputs: the port's h, da and dx are rounded to bf16 (a
+relative 2^-8 each), its g is not."""
 
 import jax
 import jax.numpy as jnp
@@ -24,8 +28,7 @@ import torch
 
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops
-from repro_torch.kernels.rglru_scan import RGLRUScanFn, reverse_scan_vjp, \
-    rglru_scan_bwd
+from repro_torch.kernels.rglru_scan import RGLRUScanFn, rglru_scan_bwd
 from repro_torch.kernels.ref import rglru_scan_bwd_ref, rglru_scan_ref
 
 SHAPES = [(2, 1, 8), (2, 7, 100), (1, 64, 32), (3, 33, 5)]
@@ -89,18 +92,32 @@ def test_rglru_bwd_matches_jax_grad_of_associative_scan(b, s, r):
 
 @pytest.mark.parametrize("h0", [False, True])
 @pytest.mark.parametrize("b,s,r", SHAPES)
-def test_reversed_scan_form_equals_plain_loop_bit_for_bit(b, s, r, h0):
-    a, x, dh, c = (None if t is None else torch.from_numpy(t)
-                   for t in _inputs(b, s, r, h0, seed=3))
-    h = rglru_scan_ref(a, x, c)
-    want = rglru_scan_bwd_ref(a, h, dh, c)
-    got = reverse_scan_vjp(a, h, dh, c, rglru_scan_ref)
-    for g, w in zip(got, want):
-        assert (g is None) == (w is None)
-        if g is not None:
+def test_plain_backward_matches_jax_grad_and_ops_backward(b, s, r, h0):
+    """In f32 and bf16: the plain reverse loop against ``jax.grad`` of the
+    oracle in f32 (on the same, bf16-rounded, inputs), and autograd
+    through ``ops.rglru_scan`` on the CPU equal to it bit for bit."""
+    a, x, dh, c = _inputs(b, s, r, h0, seed=11 * s + r)
+    for dtype, tol in ((torch.float32, 2e-6), (torch.bfloat16, 2e-2)):
+        at, xt, dht = (torch.from_numpy(t).to(dtype) for t in (a, x, dh))
+        ct = None if c is None else torch.from_numpy(c)
+        h = rglru_scan_ref(at, xt, ct)
+        want = rglru_scan_bwd_ref(at, h, dht, ct)
+        assert [w is None for w in want] == [False, False, not h0]
+        assert want[0].dtype == want[1].dtype == dtype
+        rounded = [t.float().numpy() for t in (at, xt, dht)]
+        jgrad = _jax_grads(jref.rglru_scan_ref, *rounded, c)
+        for name, g, w in zip(("da", "dx", "dh0"), want, jgrad):
+            np.testing.assert_allclose(g.float().numpy(), np.asarray(w),
+                                       atol=tol, rtol=tol,
+                                       err_msg=f"{name} {dtype}")
+        leaves = [at.clone().requires_grad_(), xt.clone().requires_grad_()]
+        if ct is not None:
+            leaves.append(ct.clone().requires_grad_())
+        got = torch.autograd.grad(ops.rglru_scan(*leaves), leaves, dht)
+        for g, w in zip(got, want):
             assert g.dtype == w.dtype and torch.equal(g, w)
-    for g, w in zip(rglru_scan_bwd(a, h, dh, c), want):
-        assert g is w or torch.equal(g, w)
+        for g, w in zip(rglru_scan_bwd(at, h, dht, ct), want):
+            assert (g is None and w is None) or torch.equal(g, w)
 
 
 def test_plain_function_and_serving_path():

@@ -203,3 +203,27 @@ def test_ring_decode_matches_jax_decode_attention(t, window, last, dtype):
         np.testing.assert_allclose(out.float().numpy(),
                                    np.asarray(want.astype(jnp.float32)),
                                    atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("b,s,r,backward,plan", [
+    (1, 4096, 2560, False, (16, 160, 4, 64, 49_152)),   # training forward
+    (1, 4096, 2560, True, (16, 160, 4, 64, 77_824)),    # its backward
+    (8, 256, 2560, False, (32, 640, 4, 32, 45_056)),    # serving prefill
+    (8, 1, 2560, False, (32, 640, 1, 1, 544)),          # decode
+])
+def test_launch_plan_at_the_serving_and_training_shapes(b, s, r, backward,
+                                                         plan, monkeypatch):
+    """32 channels a block where that still gives a block per SM of an
+    H100 (132), else 16; stages of 64 steps for a grid of at most two
+    blocks an SM, else 32; at most 4 stages, no more than chunks; the
+    plan is cached per shape."""
+    monkeypatch.setattr(rs, "sm_count", lambda index: 132)
+    rs._plan.cache_clear()
+    got = rs._plan(-1, b, s, r, 4, backward, None)
+    assert got == rs.Plan(*plan) and got.blocks >= 132
+    assert rs._plan(-1, b, s, r, 4, backward, None) is got
+    rs._plan.cache_clear()
+    assert rs.launch_plan(b, s, r, 4, 132, backward=backward,
+                          channels=16).blocks == b * -(-r // 16)
+    with pytest.raises(ValueError, match="channels"):
+        rs.launch_plan(b, s, r, 4, 132, channels=8)
