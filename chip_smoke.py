@@ -12,9 +12,12 @@ Phases, each of which fails the script (non-zero exit, no result line):
    source, all started together); ``fused_chunk`` must keep no stack
    frame (``ptxas -v``).
 2. Hold the ``fused_chunk`` kernel against its plain PyTorch version on
-   the card, bit for bit in every state leaf: each policy on the fig1 and
-   Bench-1 programs over a small grid, chunk 1 against chunk 128, and one
-   launch at the main path's shapes (timed, with its bound).
+   the card, bit for bit in every state leaf: each of the seven policies
+   on the fig1 and Bench-1 programs over a small grid; each again on the
+   Bench-1 program with long epochs, the wakeup cost and the energy model
+   on; the seven as one merged set (a ``policy`` axis) with the same
+   features; chunk 1 against chunk 128; and one launch at the main path's
+   shapes (timed, with its bound).
 3. Drive the main path at full size through ``sweep``'s two parts,
    ``init_sweep`` and ``simulate``: the paper's fig1 calibration for
    60,000 us, one sweep per policy (2,120 cells), with the kernel launch
@@ -25,6 +28,18 @@ Phases, each of which fails the script (non-zero exit, no result line):
    ``init_sweep`` and ``simulate``, its events/s, its launches past the
    last live chunk, and ``simulate``'s time on the card in the kernel
    (profiler) and outside it.
+3b. The paper's other figure grids at full length through ``sweep``, with
+   the ``fused_chunk`` counter set to 0 just before and read just after:
+   Bench-1 (both phases of ``bench1_contended``, one merged 4-policy
+   set), Bench-3 (long epochs, 120,000 us), Bench-5 (the
+   ``seg_noncrit_us`` table axis), Bench-6 (the wakeup cost), fig1 for
+   edf, shfl and dvfs_race, and ``energy_efficiency`` over the seven
+   policies (the ``big``, speed and power table axes zipped).  Each
+   grid's final state must equal the JAX package's bit for bit
+   (``FIGURE_DIGESTS``), every cell retire events and its summary be
+   finite (with the energy keys where watts are modeled).  Each grid's
+   wall time, events/s, launches, ms a launch on the card (profiler) and
+   bound.
 4. Hold the ``mlstm_scan`` kernel against its plain PyTorch version on
    the card: f32 and bf16 inputs, with and without a carry, S in {1, 7,
    15, 16, 17, 256} (the ring's 16-step chunks' edges), dh in {32, 192},
@@ -259,7 +274,7 @@ FIG1 = dict(n_cores=8, big=BIG,
 BENCH1 = dict(FIG1, seg_noncrit_us=(1.0, 0.5, 0.5, 0.5),
               seg_cs_us=(2.0, 1.0, 3.0, 0.5), seg_lock=(0, 1, 0, 1),
               n_locks=2, inter_epoch_us=7.5)
-POLICIES = ("fifo", "tas", "prop", "libasl")
+POLICIES = ("fifo", "tas", "prop", "libasl", "edf", "shfl", "dvfs_race")
 MAIN_US = 60_000.0
 SEEDS = list(range(16))
 MAIN_GRID = {
@@ -286,6 +301,144 @@ REFERENCE_DIGESTS = {
     "tas": "78f6d1e19b2bb274055ee777bc6f3b5242c27219b04de34bdb56209f909cdb8b",
     "prop": "d7115a6a4513c7b3436bcedf841f647839cdb7b4383c636be18fd637efb11036",
     "fifo": "b8988c59669d2b40feb5bc26e750a41cb9cd7ee5633894a9dd4f0b4bd452dba1",
+}
+
+
+# benchmarks/paper_figs.py's settings of the figures beyond fig1 (its
+# FIG1_KW, FIG1_SLO, ENERGY_MIXES and the Bench-3 / Bench-5 axes), as the
+# JAX package runs them.
+FIG1_KW = {"tas": dict(w_big=0.15)}
+FIG1_SLO = {"libasl": 1e9, "edf": 100.0}
+ENERGY_MIXES = (8, 6, 4, 2, 0)
+BENCH5_NC = (0.5, 1, 2, 4, 8, 16, 32, 64, 128)
+BENCH3_PROBS = [1.0 - p / 100.0 for p in (0, 20, 40, 60, 80, 100)]
+
+
+def fig_cfg(sl, policy, **kw):
+    """``paper_figs._cfg(policy, 8, **kw)``: the fig1 calibration."""
+    return sl.SimConfig(**{**FIG1, "policy": policy, "sim_time_us": MAIN_US,
+                           **kw})
+
+
+def bench1_cfg(sl, policy, **kw):
+    """``paper_figs._bench1_cfg``: 4 critical sections over 2 locks."""
+    return fig_cfg(sl, policy, **{**BENCH1, **kw})
+
+
+def figure_grids(sl, energy) -> list:
+    """The figure grids of phase 3b as (name, cfg, axes, slo_us, product),
+    for either package's ``simlock`` and ``energy`` modules, in run order.
+    Bench-1's second phase comes from :func:`bench1_phase2`."""
+    b1 = bench1_cfg(sl, "fifo", policy_set=("fifo", "tas", "prop",
+                                            "libasl"))
+    w0 = b1.default_window_us
+    grids = [("bench1 merged, phase 1", b1, {
+        "policy": ["fifo", "tas", "prop", "fifo", "fifo", "fifo"],
+        "w_big": [1.0, 8.0, 1.0, 1.0, 1.0, 1.0], "slo_us": [1e9] * 6,
+        "window0_us": [w0] * 6}, 1e9, False)]
+    long_kw = dict(long_epoch_prob=1.0, long_epoch_scale=100.0,
+                   sim_time_us=120_000.0)
+    grids += [
+        ("bench3 libasl", bench1_cfg(sl, "libasl", **long_kw),
+         {"long_epoch_prob": BENCH3_PROBS}, 400.0, True),
+        ("bench3 fifo", bench1_cfg(sl, "fifo", **long_kw),
+         {"long_epoch_prob": BENCH3_PROBS}, 1e9, True)]
+    nc_ax = [(float(nc),) for nc in BENCH5_NC]
+    b5 = dict(seg_cs_us=(2.0,), inter_epoch_us=0.5)
+    grids += [
+        ("bench5 fifo", fig_cfg(sl, "fifo", **b5),
+         {"seg_noncrit_us": nc_ax, "n_cores": [8, 4]}, 1e9, True),
+        ("bench5 tas", fig_cfg(sl, "tas", w_big=8.0, **b5),
+         {"seg_noncrit_us": nc_ax}, 1e9, True),
+        ("bench5 libasl", fig_cfg(sl, "libasl", default_window_us=1e5, **b5),
+         {"seg_noncrit_us": nc_ax}, 1e9, True)]
+    wk = {"wakeup_us": [0.0, 8.0, 20.0]}
+    grids += [
+        ("bench6 fifo", bench1_cfg(sl, "fifo", wakeup_us=20.0), wk, 1e9,
+         True),
+        ("bench6 libasl", bench1_cfg(sl, "libasl", wakeup_us=20.0), wk, 1e5,
+         True)]
+    grids += [(f"fig1 {p}", fig_cfg(sl, p, **FIG1_KW.get(p, {})),
+               {"n_cores": list(range(1, 9))}, FIG1_SLO.get(p, 1e9), True)
+              for p in ("edf", "shfl", "dvfs_race")]
+    mixes = []
+    for n_big in ENERGY_MIXES:
+        big = (1,) * n_big + (0,) * (8 - n_big)
+        mixes.append(dict(
+            big=big, speed_cs=tuple(1.0 if b else CS_RATIO for b in big),
+            speed_nc=tuple(1.0 if b else NC_RATIO for b in big),
+            **energy.amp_power(big)))
+    mix_axes = {k: [m[k] for m in mixes] for k in mixes[0]}
+    grids += [(f"energy {p}", fig_cfg(sl, p, **FIG1_KW.get(p, {})), mix_axes,
+               FIG1_SLO.get(p, 1e9), False) for p in POLICIES]
+    return grids
+
+
+def bench1_phase2(b1, fifo_p99: float) -> tuple:
+    """Bench-1's libasl column (``paper_figs.bench1_contended``): SLOs
+    from phase 1's fifo epoch P99, LibASL-MAX with the largest window."""
+    w0 = b1.default_window_us
+    slos = [0.0, fifo_p99, 1.5 * fifo_p99, 2.5 * fifo_p99, 5 * fifo_p99,
+            1e5]
+    return ("bench1 merged, phase 2", b1, {
+        "policy": ["libasl"] * 6, "w_big": [1.0] * 6, "slo_us": slos,
+        "window0_us": [w0] * 5 + [1e5]}, 1e9, False)
+
+
+def full_digest(st) -> str:
+    """sha256 over every leaf of a numpy state (reference dtypes), the
+    pol slots included, in field order."""
+    import hashlib
+    import numpy as np
+    h = hashlib.sha256()
+    for k in st._fields:
+        v = getattr(st, k)
+        for x in ([v[n] for n in sorted(v)] if k == "pol" else [v]):
+            h.update(np.ascontiguousarray(np.asarray(x)).tobytes())
+    return h.hexdigest()
+
+
+# full_digest of the JAX package's final state of each figure grid.
+# tests/test_torch_simstep_figs.py recomputes them with JAX.
+FIGURE_DIGESTS = {
+    "bench1 merged, phase 1":
+        "51eea560a1233c20002c568c3322769f1cdb5a8a1a2307de9959c46006126bd7",
+    "bench1 merged, phase 2":
+        "0601afce23b8bd16caa99af8339314a8bf4d99f312d59d6bbcf06c211949c1a0",
+    "bench3 libasl":
+        "fee4aca41a2dd98c1f45758758049a81b38a725c485b8c4337a4012cef6cd3e7",
+    "bench3 fifo":
+        "f6f17673bfa9b334a58ffce7ecd15b39311f75f15789f30be529750e9074f6fd",
+    "bench5 fifo":
+        "88fbf0795262e2d0afd3a02fee2cb9bbbd43bfe05b98d2ee1f69d7f3a48a9390",
+    "bench5 tas":
+        "1549155fad5a20e7d9b028e7011685c0d700140c9022b241264f0a4152a4c2fd",
+    "bench5 libasl":
+        "88c1fd3c30d67a55000795d560b751075c7b913de26884dd25bbd3ab9037564c",
+    "bench6 fifo":
+        "93d2760e1a9bfb4e6c87cf30019034b6630c039188f5b88b900dfc5f4700d3b1",
+    "bench6 libasl":
+        "e08664f98a2ab205346f89de5eab1fa9ce07705f291c94e3ee6af1951ad3bbeb",
+    "fig1 edf":
+        "e664dc408eb59e0bc3d2817937fdbbc205fa2904563ce193be786b098878c659",
+    "fig1 shfl":
+        "918d81e921cdb2cd8f85c2991122490b01ef785ab85c2a2ad11792e57f15fe49",
+    "fig1 dvfs_race":
+        "d7ed105d77699bb2142fc7634ea7c94feff4a8e322c1edc7002766954c702f9b",
+    "energy fifo":
+        "7fd77b896c3d6e294acac9497ea56ce16e99ee55c4e90c222c459251d2113bdb",
+    "energy tas":
+        "be5aec17f866922bcaf54d30954df10994f78656ac1dac041ab52050a3da808e",
+    "energy prop":
+        "650ce8517e19b516c638e93282c50e32bd798075eaab450bd89d1bcdca974969",
+    "energy libasl":
+        "f3301c5b1ce3abfaad9f84e44d94540f943cc6afae238c5161a248bd8999432b",
+    "energy edf":
+        "6c1f705cc1b3a603950d19b793eaa8c594da3ba7e48c756038a6083f876603c3",
+    "energy shfl":
+        "f5e94de6c0c368f443a55254639570b20ce1a5160bcd30255f1242fd0739757e",
+    "energy dvfs_race":
+        "983846f798c5ff9b931887dadafb55603d1ba1b56358dda886fa01d33877ff2b",
 }
 
 
@@ -361,18 +514,28 @@ def card_line() -> str:
 
 
 def clone(st):
-    return type(st)(**{k: v if k == "pol" else v.clone()
-                       for k, v in st._asdict().items()})
+    return type(st)(**{k: {n: x.clone() for n, x in v.items()} if k == "pol"
+                       else v.clone() for k, v in st._asdict().items()})
+
+
+def leaves(st) -> dict:
+    """name -> tensor, the pol slots as ``pol.<name>``."""
+    out = {}
+    for k, v in st._asdict().items():
+        if k == "pol":
+            out.update({f"pol.{n}": x for n, x in sorted(v.items())})
+        else:
+            out[k] = v
+    return out
 
 
 def leaf_diff(a, b) -> tuple:
     """(names of leaves that differ, max abs difference over all leaves)."""
     import torch
     bad, err = [], 0.0
-    for k in a._fields:
-        if k == "pol":
-            continue
-        x, y = getattr(a, k), getattr(b, k)
+    lb = leaves(b)
+    for k, x in leaves(a).items():
+        y = lb[k]
         if not torch.equal(x, y):
             bad.append(k)
         d = (x.double() - y.double()).abs().max().item() if x.numel() else 0
@@ -380,27 +543,49 @@ def leaf_diff(a, b) -> tuple:
     return bad, err
 
 
+def parity_case(sl, simstep, name, cfg, axes, product=True) -> None:
+    """One small grid through the kernel and the plain version."""
+    cfg = sl.sweep_config(cfg, axes)
+    tb, pm, st, _ = sl.init_sweep(cfg, axes, slo_us=80.0, product=product,
+                                  device="cuda")
+    ref = clone(st)
+    n0 = simstep.fused_chunk.launches
+    kernel_ms = cuda_ms(lambda: sl.simulate(cfg, tb, pm, st))
+    plain_ms = cuda_ms(lambda: sl.simulate(
+        cfg, tb, pm, ref, chunk_fn=simstep.fused_chunk_ref))
+    bad, _ = leaf_diff(st, ref)
+    n = simstep.fused_chunk.launches - n0
+    print(f"parity {name}: {st.events.numel()} cells, "
+          f"{int(st.events.sum())} events, {n} launches, kernel "
+          f"{kernel_ms / 1e3:.3f} s, plain {plain_ms / 1e3:.1f} s, "
+          f"differing leaves: {bad or 'none'}", flush=True)
+    if bad or n <= 0:
+        raise AssertionError(f"kernel != plain for {name}")
+
+
 def phase_parity(sl, simstep) -> None:
-    """Kernel == plain version on the card, every leaf, small grids."""
+    """Kernel == plain version on the card, every leaf, small grids: each
+    policy, each with the gated features on, and the merged set."""
     import torch
+    from repro_torch.core import energy
     axes = {"n_cores": [4, 8], "slo_us": [40.0, 90.0], "seed": [0, 1, 2, 3]}
     for pol in POLICIES:
         for prog, kw in (("fig1", FIG1), ("bench1", BENCH1)):
-            cfg = sl.SimConfig(policy=pol, sim_time_us=4000.0, **kw)
-            tb, pm, st, _ = sl.init_sweep(cfg, axes, device="cuda")
-            ref = clone(st)
-            n0 = simstep.fused_chunk.launches
-            kernel_ms = cuda_ms(lambda: sl.simulate(cfg, tb, pm, st))
-            plain_ms = cuda_ms(lambda: sl.simulate(
-                cfg, tb, pm, ref, chunk_fn=simstep.fused_chunk_ref))
-            bad, _ = leaf_diff(st, ref)
-            n = simstep.fused_chunk.launches - n0
-            print(f"parity {pol}/{prog}: 16 cells, "
-                  f"{int(st.events.sum())} events, {n} launches, kernel "
-                  f"{kernel_ms / 1e3:.3f} s, plain {plain_ms / 1e3:.1f} s, "
-                  f"differing leaves: {bad or 'none'}", flush=True)
-            if bad or n <= 0:
-                raise AssertionError(f"kernel != plain for {pol}/{prog}")
+            parity_case(sl, simstep, f"{pol}/{prog}", sl.SimConfig(
+                policy=pol, sim_time_us=4000.0, **kw), axes)
+    # Long epochs, the wakeup cost and the energy model, all on.
+    feats = dict(BENCH1, long_epoch_prob=0.3, long_epoch_scale=10.0,
+                 wakeup_us=2.0, **energy.amp_power(BIG))
+    for pol in POLICIES:
+        parity_case(sl, simstep, f"{pol}/bench1+features", sl.SimConfig(
+            policy=pol, sim_time_us=2000.0, **feats), axes)
+    merged = {"policy": list(POLICIES) * 2,
+              "slo_us": [40.0] * 7 + [90.0] * 7,
+              "w_big": [1.0, 8.0, 1.0, 1.0, 1.0, 1.0, 1.0] * 2,
+              "shfl_bound": [4] * 7 + [1] * 7,
+              "race_bound": [8] * 7 + [2] * 7}
+    parity_case(sl, simstep, "merged 7/bench1+features", sl.SimConfig(
+        sim_time_us=2000.0, **feats), merged, product=False)
     cfg = sl.SimConfig(policy="libasl", sim_time_us=4000.0, **FIG1)
     tb, pm, st, _ = sl.init_sweep(cfg, axes, device="cuda")
     one = clone(st)
@@ -434,9 +619,14 @@ def launch_bound(tb, pm, cfg, simstep, before, after, launches) -> tuple:
     4-byte ring sample.  The operations (argmin compares and handler
     steps per event) take far less time than the bytes."""
     ts, _ = simstep._operands(tb, pm, before, cfg)
-    state = set(before._fields)
+    state = set(before._fields) | {"shfl_ctr", "race_ctr"}
+    skip = {"ep_lat", "cs_lat"}
+    if not (cfg.p_cs or cfg.p_spin or cfg.p_park or cfg.p_idle):
+        skip |= {"energy", "p_cs", "p_spin", "p_park", "p_idle"}
+    if not cfg.long_epoch_prob > 0.0:
+        state.discard("scale")           # read, not written back
     per_cell = sum((2 if k in state else 1) * x[0].numel() * x.element_size()
-                   for k, x in ts.items() if k not in ("ep_lat", "cs_lat"))
+                   for k, x in ts.items() if x is not None and k not in skip)
     ev = after.events - before.events
     samples = int((after.ep_cnt - before.ep_cnt).sum()
                   + (after.cs_cnt - before.cs_cnt).sum())
@@ -597,6 +787,94 @@ def phase_main(sl, simstep) -> dict:
             "launches_past_end": total_over, "init_sweep_ms": init_ms,
             "simulate_ms": sim_ms, "card_ms": card_ms,
             "outside_ms": sim_ms - card_ms}
+
+
+def figure_run(sl, simstep, name, cfg, axes, slo_us, product) -> tuple:
+    """One figure grid through ``sweep``'s two parts on the card, held to
+    its reference digest; -> (its numbers, its summaries)."""
+    import numpy as np
+    import torch
+    cfg = sl.sweep_config(cfg, axes)
+    n0 = simstep.fused_chunk.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tb, pm, st, grid = sl.init_sweep(cfg, axes, slo_us=slo_us,
+                                     product=product, device="cuda")
+    before = clone(st)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sl.simulate(cfg, tb, pm, st)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    n = simstep.fused_chunk.launches - n0
+    ev = st.events.cpu().numpy()
+    got = full_digest(sl.to_reference(st))
+    # The same sweep again under the profiler, not counted.
+    card = sum(v for k, v in kernel_split(lambda: sl.sweep(
+        cfg, axes, slo_us=slo_us, product=product, device="cuda"),
+        1).items() if "fused_chunk" in k)
+    simstep.fused_chunk.launches = n0 + n
+    bound, by = launch_bound(tb, pm, cfg, simstep, before, st, n)
+    wall = t2 - t0
+    row = {"cells": int(ev.size), "events": int(ev.sum()), "wall_s": wall,
+           "init_sweep_ms": (t1 - t0) * 1e3,
+           "simulate_ms": (t2 - t1) * 1e3, "events_per_s": ev.sum() / wall,
+           "launches": n, "card_ms": card, "ms": card / n,
+           "bound_ms": bound, "bound_by": by,
+           "instantiation": "merged" if cfg.policy_set else cfg.policy}
+    same = got == FIGURE_DIGESTS.get(name)
+    print(f"figure {name}: {row['cells']} cells, {row['events']} events, "
+          f"{wall:.3f} s ({row['init_sweep_ms']:.1f} ms init_sweep, "
+          f"{row['simulate_ms']:.1f} ms simulate), "
+          f"{row['events_per_s']:.0f} events/s, {n} launches "
+          f"({row['instantiation']}), fused_chunk on the card {card:.2f} ms "
+          f"({row['ms']:.4f} ms a launch, bound {bound:.6f} by {by}); "
+          f"{'bit-identical to' if same else 'DIFFERS from'} the JAX "
+          f"reference (sha256 {got[:16]})", flush=True)
+    if not same:
+        raise AssertionError(f"figure {name}: final state differs from JAX")
+    horizon = pm.horizon.cpu().numpy()
+    if (ev <= 0).any() or (st.t.cpu().numpy() >= horizon).any() or n <= 0:
+        raise AssertionError(f"figure {name}: a cell retired no event or "
+                             f"ran past its horizon, or no launch")
+    summ = sl.sweep_summaries(cfg, st, grid, slo_us=slo_us)
+    for s in summ:
+        keys = ["throughput_cs_per_s"] + (
+            ["energy_j", "power_w", "tput_per_watt"] if sl._energy_on(cfg)
+            else [])
+        if not all(k in s and np.isfinite(s[k]) and s[k] > 0 for k in keys):
+            raise AssertionError(f"figure {name}: bad summary {s}")
+    return row, summ
+
+
+def phase_figures(sl, simstep) -> dict:
+    """Phase 3b: the figure grids at full length, each held to the JAX
+    package's final state; the launch counter set to 0 just before and
+    read just after."""
+    from repro_torch.core import energy
+    simstep.fused_chunk.launches = 0
+    rows = {}
+    grids = figure_grids(sl, energy)
+    for i, (name, cfg, axes, slo, product) in enumerate(grids):
+        rows[name], summ = figure_run(sl, simstep, name, cfg, axes, slo,
+                                      product)
+        if i == 0:
+            p99 = summ[0]["ep_p99_all_us"]
+            print(f"figure bench1 fifo ep_p99_all_us {p99!r} sets phase "
+                  f"2's SLOs", flush=True)
+            rows_2 = figure_run(sl, simstep, *bench1_phase2(cfg, p99))[0]
+            rows[bench1_phase2(cfg, p99)[0]] = rows_2
+    launches = simstep.fused_chunk.launches
+    total_ev = sum(r["events"] for r in rows.values())
+    total_s = sum(r["wall_s"] for r in rows.values())
+    print(f"figures: {len(rows)} grids, "
+          f"{sum(r['cells'] for r in rows.values())} cells, {total_ev} "
+          f"events in {total_s:.3f} s ({total_ev / total_s:.0f} events/s), "
+          f"{launches} fused_chunk launches", flush=True)
+    if launches <= 0 or launches != sum(r["launches"] for r in
+                                        rows.values()):
+        raise AssertionError("the figure grids' launches do not add up")
+    return {"launches": launches, "grids": rows}
 
 
 def mlstm_inputs(gen, b, h, s, dh, dtype, carry, model_layout=False):
@@ -2532,6 +2810,7 @@ def main() -> int:
         phase_parity(sl, simstep)
         shape = phase_main_shape(sl, simstep)
         main_run = phase_main(sl, simstep)
+        figures = phase_figures(sl, simstep)
         mlstm = phase_mlstm(ms, build)
         serve_run = phase_serve(ms)
         phase_model(ms)
@@ -2668,6 +2947,13 @@ def main() -> int:
             row.update({k: main_run[k] for k in (
                 "wall_s", "events_per_s", "launches_past_end",
                 "init_sweep_ms", "simulate_ms", "card_ms", "outside_ms")})
+            row["launches_by_path"] = {
+                "fig1 main path": main_run["launches"],
+                "figure grids": figures["launches"]}
+            row["figures"] = {k: {f: r[f] for f in (
+                "instantiation", "cells", "events", "launches", "wall_s",
+                "events_per_s", "ms", "bound_ms", "bound_by")}
+                for k, r in figures["grids"].items()}
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

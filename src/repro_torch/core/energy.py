@@ -1,10 +1,11 @@
-"""DVFS and power columns of the port.
+"""DVFS and power columns of the port, and the default power calibration.
 
-The in-sim energy integration is not ported yet (a config with a power
-table raises ``NotImplementedError``).  The five columns are registered
-as the JAX package registers them: ``dvfs`` divides the segment
-durations host-side in ``build_tables`` (so it already works), and the
-four power tables ride in ``SimTables.col``.
+The five columns are registered as the JAX package registers them:
+``dvfs`` divides the segment durations host-side in ``build_tables`` and
+cubes into the active and busy-wait draw; the four power tables (watts
+per phase) ride in ``SimTables.col``.  Any power table set on a config
+turns the simulator's energy integration on
+(``simlock._power_draw``, ``SimState.energy`` in watt-ticks).
 """
 
 from __future__ import annotations
@@ -26,3 +27,15 @@ for _name, _doc in (
         owner="energy", doc=_doc))
 
 POWER_COLUMNS = ("p_cs", "p_spin", "p_park", "p_idle")
+
+#: Default per-class power calibration (watts), the JAX package's: a big
+#: core's active draw is ~4x a little's for ~2-3.75x the speed.
+BIG_W = {"p_cs": 4.0, "p_spin": 1.6, "p_park": 0.4, "p_idle": 0.2}
+LITTLE_W = {"p_cs": 1.0, "p_spin": 0.4, "p_park": 0.12, "p_idle": 0.06}
+
+
+def amp_power(big) -> dict:
+    """The four power-column kwargs of a big/little map from ``BIG_W`` /
+    ``LITTLE_W`` (splat into ``SimConfig`` or ``simlock.with_columns``)."""
+    return {k: tuple(BIG_W[k] if b else LITTLE_W[k] for b in big)
+            for k in POWER_COLUMNS}

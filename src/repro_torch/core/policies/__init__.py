@@ -1,10 +1,10 @@
 """Pluggable lock-policy registry of the port.
 
 Registration order fixes the integer policy ids, and the port keeps the
-JAX package's: ``fifo=0, tas=1, prop=2, libasl=3``.  The later policies
-(``edf``, ``shfl``, ``dvfs_race``, ``ks_*``) and the merged multi-policy
-executables are not ported yet; naming one raises ``NotImplementedError``
-in :mod:`repro_torch.core.simlock`.
+JAX package's: ``fifo=0, tas=1, prop=2, libasl=3, edf=4, shfl=5,
+dvfs_race=6``.  The key-sharded policies (``ks_*``, ids 7-9 there) are
+not ported yet; naming one raises ``NotImplementedError`` in
+:mod:`repro_torch.core.simlock`.
 """
 
 from __future__ import annotations
@@ -39,12 +39,93 @@ def policy_ids() -> dict:
     return {name: i for i, name in enumerate(REGISTRY)}
 
 
+class MergedPolicy(LockPolicy):
+    """Several registered policies behind one LockPolicy: the cells of one
+    batch may each run another member, selected by ``SimParams.pol_id``.
+
+    Every hook applies each member's hook under ``cond & (pol_id ==
+    member id)``.  Hooks are fully conditional, so a masked-off member
+    commits nothing (not even a key split) and each cell runs exactly as
+    under its own policy.  Param and state slots are the members' union
+    by name; ``uses_standby`` is any member's."""
+
+    def __init__(self, names):
+        ids = policy_ids()
+        self.names = tuple(names)
+        self.members = tuple((ids[n], get(n)) for n in self.names)
+        self.name = "+".join(self.names)
+        self.uses_standby = any(m.uses_standby for _, m in self.members)
+        self.param_slots = tuple(dict.fromkeys(
+            s for _, m in self.members for s in m.param_slots))
+        self.table_slots = tuple(dict.fromkeys(
+            s for _, m in self.members for s in m.table_slots))
+        self.state_slots = tuple(dict.fromkeys(
+            s for _, m in self.members for s in m.state_slots))
+        self.sweep_axes = {}
+        for _, m in self.members:
+            for axis, slot in m.sweep_axes.items():
+                if self.sweep_axes.setdefault(axis, slot) != slot:
+                    raise ValueError(
+                        f"policy set {self.names} maps sweep axis "
+                        f"{axis!r} onto two different slots")
+
+    def init_params(self, cfg) -> dict:
+        out = {}
+        for _, m in self.members:
+            out.update(m.init_params(cfg))
+        return out
+
+    def init_state(self, cfg, b, device) -> dict:
+        out = {}
+        for _, m in self.members:
+            out.update(m.init_state(cfg, b, device))
+        return out
+
+    def _fan(self, hook, pm, cond, *args, standby_only=False):
+        for pid, m in self.members:
+            if standby_only and not m.uses_standby:
+                continue
+            sub = cond & (pm.pol_id == pid)
+            # A member commits nothing where its mask is false: skip it
+            # when no cell runs it.
+            if bool(sub.any()):
+                getattr(m, hook)(*args, sub)
+
+    def on_acquire(self, st, cfg, tb, pm, c, t, cond):
+        self._fan("on_acquire", pm, cond, st, cfg, tb, pm, c, t)
+
+    def on_standby_expiry(self, st, cfg, tb, pm, c, t, cond):
+        self._fan("on_standby_expiry", pm, cond, st, cfg, tb, pm, c, t,
+                  standby_only=True)
+
+    def on_release(self, st, cfg, tb, pm, c, t, ep_latency, last, cond):
+        self._fan("on_release", pm, cond, st, cfg, tb, pm, c, t,
+                  ep_latency, last)
+
+    def pick_next(self, st, cfg, tb, pm, l, t, cond):
+        self._fan("pick_next", pm, cond, st, cfg, tb, pm, l, t)
+
+
+_MERGED: dict = {}
+
+
+def merged(names) -> MergedPolicy:
+    """The cached :class:`MergedPolicy` for a policy-name tuple (one
+    instance per distinct ``SimConfig.policy_set``)."""
+    key = tuple(names)
+    if key not in _MERGED:
+        _MERGED[key] = MergedPolicy(key)
+    return _MERGED[key]
+
+
 # Import order == registry order == policy ids.
 from repro_torch.core.policies import fifo as _fifo      # noqa: E402,F401
 from repro_torch.core.policies import tas as _tas        # noqa: E402,F401
 from repro_torch.core.policies import prop as _prop      # noqa: E402,F401
 from repro_torch.core.policies import libasl as _libasl  # noqa: E402,F401
-# dvfs_race registers only its owned table column so far.
+from repro_torch.core.policies import edf as _edf        # noqa: E402,F401
+from repro_torch.core.policies import shfl as _shfl      # noqa: E402,F401
 from repro_torch.core.policies import dvfs_race as _dvfs  # noqa: E402,F401
 
-__all__ = ["LockPolicy", "REGISTRY", "register", "get", "policy_ids"]
+__all__ = ["LockPolicy", "REGISTRY", "register", "get", "policy_ids",
+           "MergedPolicy", "merged"]

@@ -11,7 +11,8 @@ reference.  Hooks update the state tensors in place (one row per cell,
 so an advanced-index write never collides).
 
 The CUDA kernel (``repro_torch/kernels/csrc/simstep.cu``) implements the
-same hooks per cell, switching on the policy id; this module is the plain
+same hooks per cell, one instantiation per policy and one that switches
+on each cell's policy id (merged sets); these hooks are the plain
 version it is held against.
 """
 
@@ -115,14 +116,30 @@ def lock_vec(st, tb) -> torch.Tensor:
     return torch.gather(tb.seg_lock, 1, st.seg.long())
 
 
-def grant(st, tb, cond, c, t) -> None:
+def policy_opts(cfg) -> dict:
+    """``SimConfig.policy_kw`` as a dict (policy-owned numeric knobs)."""
+    return dict(cfg.policy_kw)
+
+
+def handoff_cost(cfg, pm):
+    """The wakeup a queue-pop handoff pays (``pm.wakeup``, ``[B]`` ticks)
+    when the config's wakeup gate is on, else None: a blocking lock's
+    parked waiter takes that long to run (Bench-6)."""
+    return pm.wakeup if cfg.wakeup_us > 0.0 else None
+
+
+def grant(st, tb, cond, c, t, wakeup=None) -> None:
     """Make core ``c`` (where ``cond``) the holder of its lock and
-    schedule its release after its segment's critical section."""
+    schedule its release after its segment's critical section, plus
+    ``wakeup`` ticks where given (:func:`handoff_cost`: only queue-pop
+    handoffs pay it, never an acquire's grab, a spinner or a standby)."""
     r = rows(st.seg)
     c_safe = torch.clamp_min(c, 0)
     s = st.seg[r, c_safe].long()
     l = tb.seg_lock[r, s].long()
     dur = tb.cs_dur[r, c_safe, s]
+    if wakeup is not None:
+        dur = dur + wakeup
     put(st.holder, (l,), c_safe, cond)
     put(st.phase, (c_safe,), HOLDER, cond)
     put(st.t_ready, (c_safe,), t + dur, cond)
@@ -133,6 +150,23 @@ def park(st, cond, c, new_phase) -> None:
     it carries ``t_ready = INF`` until a releaser wakes it."""
     put(st.phase, (c,), new_phase, cond)
     put(st.t_ready, (c,), INF, cond)
+
+
+def waiting_mask(st, tb, l, phase=QUEUED) -> torch.Tensor:
+    """``[B, N]``: cores parked in ``phase`` on lock ``l`` — the waiter set
+    the queue-less policies (edf, shfl, dvfs_race) scan at a release."""
+    return (st.phase == phase) & (lock_vec(st, tb) == l[:, None])
+
+
+def queueless_acquire(st, tb, c, t, cond) -> None:
+    """The queue-less acquire (edf, shfl, dvfs_race): grab when the lock
+    is free and nobody waits on it, else park in QUEUED for the
+    releaser's scan."""
+    l = lock_of(st, tb, c)
+    free = st.holder[rows(l), l] == -1
+    can_grab = free & ~waiting_mask(st, tb, l).any(dim=1)
+    grant(st, tb, can_grab & cond, c, t)
+    park(st, ~can_grab & cond, c, QUEUED)
 
 
 def advance_key(st, cond):
@@ -167,6 +201,15 @@ class LockPolicy:
     #: :mod:`repro_torch.core.asl_schedule` key); None when the policy
     #: has no host counterpart.
     host_scheduler: str = None
+
+    def init_params(self, cfg) -> dict:
+        """Policy-owned knobs -> ``SimParams.pol`` (numpy scalars, read
+        from ``policy_opts(cfg)``)."""
+        return {}
+
+    def init_state(self, cfg, b: int, device) -> dict:
+        """Policy-owned per-run state -> ``SimState.pol`` (``b`` cells)."""
+        return {}
 
     def on_acquire(self, st, cfg, tb, pm, c, t, cond) -> None:
         raise NotImplementedError

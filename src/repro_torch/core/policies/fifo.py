@@ -4,7 +4,8 @@ from __future__ import annotations
 
 from repro_torch.core.policies import register
 from repro_torch.core.policies.base import (LockPolicy, QUEUED, deq, enq,
-                                            grant, lock_of, park, qlen, rows)
+                                            grant, handoff_cost, lock_of,
+                                            park, qlen, rows)
 
 
 @register
@@ -24,4 +25,4 @@ class FifoPolicy(LockPolicy):
     def pick_next(self, st, cfg, tb, pm, l, t, cond):
         nonempty = (qlen(st, l, 0) > 0) & cond
         cq = deq(st, nonempty, l, 0)
-        grant(st, tb, nonempty, cq, t)
+        grant(st, tb, nonempty, cq, t, wakeup=handoff_cost(cfg, pm))

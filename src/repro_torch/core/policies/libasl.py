@@ -9,8 +9,9 @@ from repro_torch.core.aimd import aimd_update
 from repro_torch.core.policies import register
 from repro_torch.core.policies.base import (LockPolicy, QUEUED, STANDBY,
                                             advance_key, deq, enq, grant,
-                                            lock_of, lock_vec, park, put,
-                                            qlen, rows, ticks, weighted_pick)
+                                            handoff_cost, lock_of, lock_vec,
+                                            park, put, qlen, rows, ticks,
+                                            weighted_pick)
 
 
 @register
@@ -63,7 +64,7 @@ class LibASLPolicy(LockPolicy):
         # FIFO queue first.
         nonempty = (qlen(st, l, 0) > 0) & cond
         cq = deq(st, nonempty, l, 0)
-        grant(st, tb, nonempty, cq, t)
+        grant(st, tb, nonempty, cq, t, wakeup=handoff_cost(cfg, pm))
         # Queue empty -> a standby competitor may grab the free lock.  The
         # key advances on every release, even when the queue served.
         standby = (st.phase == STANDBY) & (lock_vec(st, tb) == l[:, None])

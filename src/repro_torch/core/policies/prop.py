@@ -7,7 +7,8 @@ import torch
 
 from repro_torch.core.policies import register
 from repro_torch.core.policies.base import (LockPolicy, QUEUED, deq, enq,
-                                            grant, lock_of, park, qlen, rows)
+                                            grant, handoff_cost, lock_of,
+                                            park, qlen, rows)
 
 
 @register
@@ -40,4 +41,5 @@ class PropPolicy(LockPolicy):
         st.prop_ctr[r, l] = torch.where(
             take_big, ctr + 1, torch.where(take_little, 0, ctr))
         grant(st, tb, take_big | take_little,
-              torch.where(take_big, cb, cl), t)
+              torch.where(take_big, cb, cl), t,
+              wakeup=handoff_cost(cfg, pm))

@@ -19,11 +19,15 @@ in the hand-written kernel :func:`repro_torch.kernels.simstep.fused_chunk`
 (``chunk`` events per launch, launched until no cell is live); on the CPU
 the same wrapper runs :func:`_step`, the plain PyTorch version.
 
-Scope of this slice: the paper's closed-loop experiments for ``fifo``,
-``tas``, ``prop`` and ``libasl``.  Every ``SimState`` leaf is bit-identical
-to the JAX package's for the same config (``tests/test_torch_simlock.py``).
-A config that needs a feature outside the slice raises
-``NotImplementedError`` naming it.  Entry points take ``device=None``,
+Scope: the paper's closed-loop, fault-free, key-free experiments under
+the seven table policies (``fifo``, ``tas``, ``prop``, ``libasl``,
+``edf``, ``shfl``, ``dvfs_race``), merged policy sets (a ``policy``
+axis), program and column table axes, long epochs, the blocking-lock
+wakeup cost and the energy model.  Every ``SimState`` leaf is
+bit-identical to the JAX package's for the same config
+(``tests/test_torch_simlock*.py``).  A config that needs a feature the
+port does not run yet (histograms, stochastic workloads, faults, keyed
+traffic) raises ``NotImplementedError`` naming it.  Entry points take ``device=None``,
 which means the CUDA device; pass ``device="cpu"`` for the plain version.
 """
 
@@ -41,28 +45,31 @@ from repro_torch.core import aimd, policies, stats
 from repro_torch.core import columns as colreg
 from repro_torch.core import energy as _energy
 from repro_torch.core.policies.base import (HOLDER, INF, NONCRIT, QUEUED,
-                                            SPIN, STANDBY, US, lock_of, put,
-                                            rows, ticks)
+                                            SPIN, STANDBY, US, advance_key,
+                                            lock_of, put, rows, ticks)
 from repro_torch.workloads import ARRIVALS, SERVICES
 from repro_torch.workloads import keys as wlk
-from repro_torch.workloads.generators import PRNGKey
+from repro_torch.workloads.generators import PRNGKey, uniform
 from repro_torch import faults as _faults  # noqa: F401  (ft_mask column)
 from repro_torch.device import resolve as _device
 
 POLICIES = policies.policy_ids()
 
 # Policies of the JAX package that this port does not run yet.
-_LATER_POLICIES = ("edf", "shfl", "dvfs_race", "ks_erew", "ks_crew",
-                   "ks_jbsq")
+_LATER_POLICIES = ("ks_erew", "ks_crew", "ks_jbsq")
+
+
+def _not_ported(name: str) -> None:
+    if name in _LATER_POLICIES:
+        raise NotImplementedError(
+            f"lock policy {name!r} is not ported to repro_torch yet; "
+            f"ported: {sorted(POLICIES)}")
 
 
 def _validate_config(cfg) -> None:
     """Reject NaN / negative / out-of-range fields and unknown policy
     names at construction — the reference's checks, field for field."""
-    if cfg.policy in _LATER_POLICIES:
-        raise NotImplementedError(
-            f"lock policy {cfg.policy!r} is not ported to repro_torch yet; "
-            f"ported: {sorted(POLICIES)}")
+    _not_ported(cfg.policy)
     if cfg.policy not in POLICIES:
         import difflib
         hint = difflib.get_close_matches(cfg.policy, POLICIES, n=1)
@@ -70,6 +77,20 @@ def _validate_config(cfg) -> None:
             f"unknown lock policy {cfg.policy!r}; registered: "
             f"{sorted(POLICIES)}"
             + (f" -- did you mean {hint[0]!r}?" if hint else ""))
+    if cfg.policy_set:
+        for p in cfg.policy_set:
+            _not_ported(p)
+            if p not in POLICIES:
+                raise ValueError(
+                    f"policy_set entry {p!r} is not registered; "
+                    f"registered: {sorted(POLICIES)}")
+        if len(set(cfg.policy_set)) != len(cfg.policy_set):
+            raise ValueError(
+                f"policy_set has duplicates: {cfg.policy_set!r}")
+        if cfg.policy not in cfg.policy_set:
+            raise ValueError(
+                f"policy {cfg.policy!r} is not in "
+                f"policy_set {cfg.policy_set!r}")
 
     def chk(name, lo=None, hi=None, lo_open=False):
         v = getattr(cfg, name)
@@ -154,16 +175,10 @@ def _validate_config(cfg) -> None:
 def _check_slice(cfg) -> None:
     """Name every feature of ``cfg`` that this port does not run yet."""
     later = []
-    if cfg.policy_set:
-        later.append("policy_set (merged multi-policy executables)")
     if cfg.wl:
         later.append("wl (stochastic workloads)")
     if cfg.wl_open:
         later.append("wl_open (open-loop arrivals)")
-    if cfg.long_epoch_prob > 0.0:
-        later.append("long_epoch_prob > 0 (long epochs)")
-    if cfg.wakeup_us > 0.0:
-        later.append("wakeup_us > 0 (blocking-lock wakeup cost)")
     for rate in ("preempt_rate", "churn_rate", "straggle_rate"):
         if getattr(cfg, rate) > 0.0:
             later.append(f"{rate} > 0 (fault injection)")
@@ -171,8 +186,6 @@ def _check_slice(cfg) -> None:
         later.append("n_keys > 0 (key-sharded traffic)")
     if cfg.hist:
         later.append("hist (streaming latency histograms)")
-    if any(getattr(cfg, p) for p in _energy.POWER_COLUMNS):
-        later.append("power tables p_cs/p_spin/p_park/p_idle (energy model)")
     if later:
         raise NotImplementedError(
             "repro_torch does not run these SimConfig features yet: "
@@ -257,6 +270,21 @@ class SimConfig:
     @property
     def policy_id(self) -> int:
         return POLICIES[self.policy]
+
+
+def _active_policy(cfg: SimConfig):
+    """The registered policy, or the cached merged set of
+    ``cfg.policy_set`` (each cell runs the member ``SimParams.pol_id``
+    names)."""
+    if cfg.policy_set:
+        return policies.merged(cfg.policy_set)
+    return policies.get(cfg.policy)
+
+
+def _energy_on(cfg: SimConfig) -> bool:
+    """The energy gate: is any per-core power table set?  (All-zero
+    tables turn it on too and integrate exact zeros.)"""
+    return bool(cfg.p_cs or cfg.p_spin or cfg.p_park or cfg.p_idle)
 
 
 class SimTables(NamedTuple):
@@ -387,11 +415,14 @@ def _tables_host(cfg: SimConfig) -> dict:
 
 
 def _param_values(cfg: SimConfig, slo_us, seed=0, n_active=None) -> dict:
-    """One cell's SimParams as numpy scalars (the reference's rounding)."""
-    if cfg.policy_kw:
+    """One cell's SimParams as numpy scalars (the reference's rounding);
+    the policy's own knobs under ``"pol"``."""
+    pol = _active_policy(cfg).init_params(cfg)
+    unknown = set(dict(cfg.policy_kw)) - set(pol)
+    if unknown:
         raise ValueError(
-            f"unknown policy_kw {sorted(dict(cfg.policy_kw))} for policy "
-            f"{cfg.policy!r}; known knobs: []")
+            f"unknown policy_kw {sorted(unknown)} for policy "
+            f"{cfg.policy!r}; known knobs: {sorted(pol)}")
     slo = (slo_us * US).astype(np.float32) if hasattr(slo_us, "astype") \
         else np.float32(ticks(slo_us))
     ks_theta, ks_zeta, ks_eta, ks_alpha = wlk.zipf_consts(
@@ -433,7 +464,8 @@ def _param_values(cfg: SimConfig, slo_us, seed=0, n_active=None) -> dict:
         ks_eta=f32(ks_eta),
         ks_alpha=f32(ks_alpha),
         ks_locks=i32(cfg.n_locks),
-        hist_warmup=i32(cfg.hist_warmup))
+        hist_warmup=i32(cfg.hist_warmup),
+        pol=pol)
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -456,8 +488,9 @@ def build_params(cfg: SimConfig, slo_us, seed=0, n_active=None,
     """SimParams of one run (0-d tensors) from config defaults."""
     dev = _device(device)
     vals = _param_values(cfg, slo_us, seed, n_active)
+    pol = {k: _tensor(v, dev) for k, v in vals.pop("pol").items()}
     return SimParams(**{k: _tensor(v, dev) for k, v in vals.items()},
-                     pol={})
+                     pol=pol)
 
 
 def _default_windows(cfg: SimConfig) -> np.ndarray:
@@ -505,7 +538,7 @@ def _init_state(cfg: SimConfig, tb: SimTables, pm: SimParams,
         cur_rw=torch.ones((b, n), **f32),
         ep_hist=torch.zeros((b, n, 1), **i32),
         cs_hist=torch.zeros((b, n, 1), **i32),
-        pol={})
+        pol=_active_policy(cfg).init_state(cfg, b, dev))
 
 
 # --------------------------------------------------------------------------
@@ -517,7 +550,7 @@ def _handle_acquire(st, cfg, tb, pm, c, t, cond) -> None:
     """A core's non-critical section ended: record the attempt time and
     let the policy decide grab / queue / standby / spin."""
     put(st.attempt_t, (c,), t, cond)
-    policies.get(cfg.policy).on_acquire(st, cfg, tb, pm, c, t, cond)
+    _active_policy(cfg).on_acquire(st, cfg, tb, pm, c, t, cond)
 
 
 def _record(buf, cnt, c, value, cond) -> None:
@@ -528,8 +561,40 @@ def _record(buf, cnt, c, value, cond) -> None:
     cnt[r, c] = n + cond.to(torch.int32)
 
 
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor):
+    """``a * b + c`` in f32 with one rounding, as ``fmaf`` gives it.
+
+    The f64 product of two f32 values is exact; the f64 sum is rounded
+    to odd (its exact error, from TwoSum, decides the last bit), which
+    then rounds to f32 exactly as the one-step fused operation would."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    odd = torch.nextafter(s, torch.where(err > 0, math.inf, -math.inf))
+    return torch.where((err != 0) & even, odd, s).float()
+
+
+def _power_draw(tb, pm, st) -> torch.Tensor:
+    """``[B, N]`` watts by phase: computing (NONCRIT / HOLDER) and
+    busy-waiting (SPIN / STANDBY) scale with ``dvfs^3``; parked (QUEUED)
+    and idle draw their floor; inactive padded cores draw idle."""
+    ph = st.phase
+    f = tb.col["dvfs"]
+    f3 = (f * f) * f                  # jnp's integer_pow(f, 3)
+    p_idle = tb.col["p_idle"]
+    p = torch.where(
+        (ph == NONCRIT) | (ph == HOLDER), tb.col["p_cs"] * f3,
+        torch.where((ph == SPIN) | (ph == STANDBY), tb.col["p_spin"] * f3,
+                    torch.where(ph == QUEUED, tb.col["p_park"], p_idle)))
+    core = torch.arange(ph.shape[1], device=ph.device)
+    return torch.where(core[None, :] < pm.n_active[:, None], p, p_idle)
+
+
 def _handle_release(st, cfg, tb, pm, c, t, cond) -> None:
-    pol = policies.get(cfg.policy)
+    pol = _active_policy(cfg)
     r = rows(c)
     s = st.seg[r, c]
     l = lock_of(st, tb, c)
@@ -544,13 +609,27 @@ def _handle_release(st, cfg, tb, pm, c, t, cond) -> None:
     _record(st.ep_lat, st.ep_cnt, c, ep_latency, last & cond)
     pol.on_release(st, cfg, tb, pm, c, t, ep_latency, last, cond)
 
+    # Bench-3's long epochs: every release splits the key; at an epoch
+    # end the draw sets the next epoch's scale of its non-critical work.
+    if cfg.long_epoch_prob > 0.0:
+        u = uniform(advance_key(st, cond))
+        new_scale = torch.where(u < pm.long_prob, pm.long_scale, 1.0)
+        scale_c = torch.where(last & cond, new_scale, st.scale[r, c])
+        st.scale[r, c] = scale_c
+
+        def _sc(d):
+            return (d.to(torch.float32) * scale_c).to(torch.int32)
+    else:
+        def _sc(d):
+            return d
+
     # Advance the program: next segment, or — epoch done — the closed-loop
     # think gap (inter-epoch + segment-0 noncrit).
     nxt = torch.clamp_max(s + 1, n_seg - 1).long()
-    inter = tb.inter[r, c]
+    inter = _sc(tb.inter[r, c])
     ep_start = torch.where(last, t + inter, st.epoch_start[r, c])
-    ready = torch.where(last, t + inter + tb.nc_dur[r, c, 0],
-                        t + tb.nc_dur[r, c, nxt])
+    ready = torch.where(last, t + inter + _sc(tb.nc_dur[r, c, 0]),
+                        t + _sc(tb.nc_dur[r, c, nxt]))
     put(st.seg, (c,), torch.where(last, 0, s + 1), cond)
     put(st.epoch_start, (c,), ep_start, cond)
     put(st.phase, (c,), NONCRIT, cond)
@@ -572,10 +651,17 @@ def _step(cfg: SimConfig, tb: SimTables, pm: SimParams,
     c = torch.argmin(st.t_ready, dim=1)
     t = st.t_ready[r, c]
     live = (t < pm.horizon) & (st.events < cfg.max_events)
+    if _energy_on(cfg):
+        # Every core spends the clock's advance in its current phase.
+        # The compiled reference contracts this multiply-add into one
+        # FMA (one rounding); fma_f32 gives its bits.
+        dt = torch.where(live, (t - st.t).to(torch.float32), 0.0)
+        st.energy.copy_(fma_f32(dt[:, None], _power_draw(tb, pm, st),
+                                st.energy))
     st.t.copy_(torch.where(live, t, st.t))
     st.events.add_(live.to(torch.int32))
     ph = st.phase[r, c]
-    pol = policies.get(cfg.policy)
+    pol = _active_policy(cfg)
     handlers = [(NONCRIT, _handle_acquire), (HOLDER, _handle_release)]
     if pol.uses_standby:
         handlers.append((STANDBY, pol.on_standby_expiry))
@@ -640,49 +726,146 @@ def simulate(cfg: SimConfig, tb: SimTables, pm: SimParams, st: SimState,
 # Sweeps: one batch of cells for a whole figure
 # --------------------------------------------------------------------------
 
-#: Axes this port sweeps.  Policy ids and axis names are the reference's.
-SWEEPABLE = ("slo_us", "w_big", "prop_n", "seed", "n_cores", "window0_us",
-             "sim_time_us")
+#: Axes that set one SimParams field per cell (``_cell_params``).
+_PARAM_AXES = ("slo_us", "w_big", "prop_n", "seed", "n_cores",
+               "long_epoch_prob", "long_epoch_scale", "wakeup_us")
+#: Gated features: sweeping the axis turns the gate on in the template.
+_GATE_AXES = ("long_epoch_prob", "wakeup_us")
+#: Program axes: SimConfig fields rebuilt into each cell's tables.
+_PROGRAM_AXES = ("seg_noncrit_us", "seg_cs_us", "seg_lock",
+                 "inter_epoch_us", "big", "speed_cs", "speed_nc")
 #: The reference's other axes, which need features not ported yet.
 _LATER_AXES = (
-    "long_epoch_prob", "long_epoch_scale", "wakeup_us", "arrival_rate",
-    "cv", "mix", "mix_scale", "burstiness", "burst_len", "preempt_rate",
-    "preempt_scale", "churn_rate", "straggle_rate", "straggle_scale",
-    "n_keys", "zipf_theta", "n_locks", "policy", "seg_noncrit_us",
-    "seg_cs_us", "seg_lock", "inter_epoch_us", "big", "speed_cs",
-    "speed_nc")
+    "arrival_rate", "cv", "mix", "mix_scale", "burstiness", "burst_len",
+    "preempt_rate", "preempt_scale", "churn_rate", "straggle_rate",
+    "straggle_scale", "n_keys", "zipf_theta", "n_locks")
+
+
+def table_axes() -> tuple:
+    """Axes that rebuild ``SimTables`` per cell: the program axes and
+    every registered sweepable column's axis."""
+    return _PROGRAM_AXES + tuple(colreg.axis_to_spec())
+
+
+def _sweepable() -> tuple:
+    return _PARAM_AXES + table_axes() + (
+        "window0_us", "policy", "sim_time_us")
+
+
+#: Axes this port sweeps (names are the reference's).
+SWEEPABLE = _sweepable()
+
+
+def sweepable_axes(cfg: SimConfig) -> tuple:
+    """All sweep axes valid for ``cfg``: the engine's and the policy's
+    own (``shfl_bound``, ``race_bound``)."""
+    base = _sweepable()
+    return base + tuple(
+        a for a in _active_policy(cfg).sweep_axes if a not in base)
+
+
+def table_columns(cfg: SimConfig) -> dict:
+    """Every registered column as ``build_tables`` materializes it
+    (encoded and padded), keyed by column name."""
+    return {spec.name: spec.host_values(cfg, cfg.n_cores)
+            for spec in colreg.COLUMNS.values()}
+
+
+def with_columns(cfg: SimConfig, **cols) -> SimConfig:
+    """Set registered per-core columns by column name: dedicated-field
+    columns go to their SimConfig field, the others into
+    ``cfg.columns``.  Unknown names raise with a did-you-mean."""
+    for name, vals in cols.items():
+        spec = colreg.lookup(name)
+        if spec.field:
+            cfg = dataclasses.replace(cfg, **{spec.field: tuple(vals)})
+        else:
+            d = dict(cfg.columns)
+            d[name] = tuple(vals)
+            cfg = dataclasses.replace(cfg, columns=tuple(sorted(d.items())))
+    return cfg
+
+
+def _cell_tables_cfg(cfg: SimConfig, cell: dict, table_keys) -> SimConfig:
+    """A cell's table-axis values applied to the template config."""
+    by_axis = colreg.axis_to_spec()
+    for k in table_keys:
+        if k in _PROGRAM_AXES:
+            cfg = dataclasses.replace(cfg, **{k: cell[k]})
+        else:
+            cfg = with_columns(cfg, **{by_axis[k].name: tuple(cell[k])})
+    return cfg
 
 
 def _cell_params(cfg: SimConfig, cell: dict, slo_us, seed) -> dict:
     pm = _param_values(cfg, cell.get("slo_us", slo_us),
                        cell.get("seed", seed),
                        n_active=cell.get("n_cores", cfg.n_cores))
+    if "policy" in cell:
+        pm["pol_id"] = np.int32(POLICIES[cell["policy"]])
     if "sim_time_us" in cell:
         pm["horizon"] = np.int32(ticks(cell["sim_time_us"]))
     if "w_big" in cell:
         pm["w_big"] = np.float32(cell["w_big"])
     if "prop_n" in cell:
         pm["prop_n"] = np.int32(cell["prop_n"])
+    if "long_epoch_prob" in cell:
+        pm["long_prob"] = np.float32(cell["long_epoch_prob"])
+    if "long_epoch_scale" in cell:
+        pm["long_scale"] = np.float32(cell["long_epoch_scale"])
+    if "wakeup_us" in cell:
+        pm["wakeup"] = np.int32(ticks(cell["wakeup_us"]))
     if "window0_us" in cell:
         # A swept initial window plays the role of default_window_us, so
         # the unit floor follows it.
         pm["unit0"] = np.float32(
             aimd.unit_for(ticks(cell["window0_us"]), cfg.pct))
+    for axis, slot in _active_policy(cfg).sweep_axes.items():
+        if axis in cell and slot in pm["pol"]:
+            pm["pol"] = dict(pm["pol"], **{slot: np.asarray(
+                cell[axis], pm["pol"][slot].dtype)})
     return pm
 
 
-def _grid_cells(cfg: SimConfig, axes: dict, product: bool) -> list:
+def sweep_config(cfg: SimConfig, axes: dict) -> SimConfig:
+    """The config a sweep over ``axes`` runs under, as the reference's
+    ``sweep`` derives it: a ``policy`` axis grows ``policy_set`` (each
+    cell's member rides in ``SimParams.pol_id``), and a swept gated
+    feature (long epochs, wakeup, watts) turns its gate on.
+    :func:`init_sweep` and :func:`simulate` take this config."""
     if not axes:
         raise ValueError("empty sweep: pass at least one axis")
-    table_axes = tuple(colreg.axis_to_spec())
+    if "policy" in axes:
+        if not axes["policy"]:
+            raise ValueError("policy axis needs at least one name")
+        for p in axes["policy"]:
+            _not_ported(p)
+        pset = tuple(dict.fromkeys(
+            tuple(cfg.policy_set) + tuple(axes["policy"])))
+        cfg = dataclasses.replace(cfg, policy_set=pset, policy=pset[0])
+    allowed = sweepable_axes(cfg)
     for name in axes:
-        if name in _LATER_AXES or name in table_axes:
+        if name in _LATER_AXES:
             raise NotImplementedError(
                 f"sweep axis {name!r} is not ported to repro_torch yet; "
-                f"sweepable: {SWEEPABLE}")
-        if name not in SWEEPABLE:
+                f"sweepable: {allowed}")
+        if name not in allowed:
             raise ValueError(f"unknown sweep axis {name!r}; "
-                             f"sweepable: {SWEEPABLE}")
+                             f"sweepable: {allowed}")
+    for gate in _GATE_AXES:
+        if gate in axes and max(axes[gate]) > 0.0:
+            cfg = dataclasses.replace(cfg, **{gate: max(axes[gate])})
+    # Swept watts turn the energy gate on ((0.0,) pads to all-zero
+    # tables, so cells that do not sweep a power column are unchanged).
+    if not _energy_on(cfg) and any(
+            a in axes and any(any(float(x) != 0.0 for x in v)
+                              for v in axes[a])
+            for a in _energy.POWER_COLUMNS):
+        cfg = dataclasses.replace(cfg, p_idle=(0.0,))
+    return cfg
+
+
+def _grid_cells(cfg: SimConfig, axes: dict, product: bool) -> list:
     names = list(axes)
     vals = [list(axes[k]) for k in names]
     if product:
@@ -702,28 +885,49 @@ def _grid_cells(cfg: SimConfig, axes: dict, product: bool) -> list:
 def init_sweep(cfg: SimConfig, axes: dict, *, slo_us=1e9, seed=0,
                windows0=None, product: bool = True, device=None):
     """Tables, params and initial state of a sweep's cells, on ``device``.
-    Returns ``(tb, pm, st, grid)``; :func:`simulate` runs them."""
+    Returns ``(tb, pm, st, grid)``; :func:`simulate` runs them.  ``cfg``
+    must be ``sweep_config(cfg, axes)`` (raises otherwise), the config
+    :func:`simulate` then takes."""
     dev = _device(device)
+    if sweep_config(cfg, axes) != cfg:
+        raise ValueError("these axes need the config sweep_config(cfg, "
+                         "axes) gives; pass that to init_sweep and "
+                         "simulate")
     cells = _grid_cells(cfg, axes, product)
     b = len(cells)
-    h = _tables_host(cfg)
+    tbl_axes = table_axes()
+    table_keys = [k for k in axes if k in tbl_axes]
+    if table_keys:
+        hs = [_tables_host(_cell_tables_cfg(cfg, cell, table_keys))
+              for cell in cells]
 
-    def rep(a):
-        return _tensor(np.broadcast_to(a, (b,) + np.shape(a)), dev)
+        def cat(get):
+            return _tensor(np.stack([get(h) for h in hs]), dev)
+    else:
+        h1 = _tables_host(cfg)
 
-    tb = SimTables(**{k: {c: rep(v) for c, v in h["col"].items()}
-                      if k == "col" else rep(v) for k, v in h.items()})
+        def cat(get):
+            a = get(h1)
+            return _tensor(np.broadcast_to(a, (b,) + np.shape(a)), dev)
+    tb = SimTables(**{k: {c: cat(lambda h, c=c: h["col"][c])
+                          for c in colreg.COLUMNS}
+                      if k == "col" else cat(lambda h, k=k: h[k])
+                      for k in SimTables._fields})
     per = [_cell_params(cfg, cell, slo_us, seed) for cell in cells]
+    pol = {k: _tensor(np.stack([p["pol"][k] for p in per]), dev)
+           for k in per[0]["pol"]}
     pm = SimParams(**{k: _tensor(np.asarray(
         [p[k] for p in per], np.int32 if k in _I32_PARAMS else np.float32),
-        dev) for k in per[0]}, pol={})
+        dev) for k in per[0] if k != "pol"}, pol=pol)
     base_w = _default_windows(cfg) if windows0 is None else \
         np.asarray(windows0, np.float32)
     w0 = np.stack([
         np.full(cfg.n_cores, ticks(cell["window0_us"]), np.float32)
         if "window0_us" in cell else base_w for cell in cells])
     st = _init_state(cfg, tb, pm, _tensor(w0, dev))
-    grid = {k: np.asarray([cell[k] for cell in cells]) for k in axes}
+    grid = {k: np.asarray([cell[k] for cell in cells], dtype=object)
+            if k in tbl_axes else np.asarray([cell[k] for cell in cells])
+            for k in axes}
     return tb, pm, st, grid
 
 
@@ -736,9 +940,14 @@ def sweep(cfg: SimConfig, axes: dict, *, slo_us=1e9, seed=0,
     key order; with ``product=False`` the lists are zipped.  ``n_cores``
     cells run padded to ``cfg.n_cores`` with an active-core mask.
 
+    A ``policy`` axis runs its policies as one merged set, and sweeping
+    a gated feature turns it on (:func:`sweep_config`).
+
     Returns ``(state, grid)``: ``state`` leaves have a leading cell axis;
-    ``grid`` maps axis name -> np.ndarray of per-cell values.
+    ``grid`` maps axis name -> np.ndarray of per-cell values (object
+    arrays for table axes, as the reference gives them).
     """
+    cfg = sweep_config(cfg, axes)
     tb, pm, st, grid = init_sweep(cfg, axes, slo_us=slo_us, seed=seed,
                                   windows0=windows0, product=product,
                                   device=device)
@@ -746,8 +955,8 @@ def sweep(cfg: SimConfig, axes: dict, *, slo_us=1e9, seed=0,
 
 
 def _cell(st: SimState, i: int) -> SimState:
-    return SimState(**{k: v if k == "pol" else v[i]
-                       for k, v in st._asdict().items()})
+    return SimState(**{k: {n: x[i] for n, x in v.items()} if k == "pol"
+                       else v[i] for k, v in st._asdict().items()})
 
 
 def run(cfg: SimConfig, slo_us, seed=0, windows0=None,
@@ -893,10 +1102,19 @@ def summarize(cfg: SimConfig, st: SimState, warmup: int = 32,
         # most recent `epcap` samples (recency-biased).
         out["tail_truncated"] = True
     out["final_window_us"] = (np.asarray(st.window)[:n] / US).tolist()
-    # The energy model is not ported: the accumulator stays zero.
+    # The accumulator is in watt-ticks; 1 tick = 10 ns, so 1 watt-tick =
+    # 10 nJ.  The efficiency keys appear only when energy was modeled.
     e_j = np.asarray(st.energy)[:n].astype(float) * 1e-8
     out["energy_per_core_j"] = e_j.tolist()
     out["energy_j"] = float(e_j.sum())
+    if out["energy_j"] > 0.0:
+        out["power_w"] = out["energy_j"] / sim_s
+        out["tput_per_watt"] = (out["throughput_cs_per_s"]
+                                / out["power_w"])
+        p50 = out["ep_p50_all_us"]
+        # EDP = energy x delay (J*s); delay = the median epoch latency.
+        out["edp"] = out["energy_j"] * p50 * 1e-6 if np.isfinite(p50) \
+            else float("nan")
     if slo_us is not None:
         scl = colreg.COLUMNS["slo_scale"].np_values(cfg, n)
         good = tot = 0

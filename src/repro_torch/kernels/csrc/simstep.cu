@@ -5,9 +5,13 @@
 // pallas_call with the packed state held in VMEM.  This kernel does the
 // same work for a batch of sweep cells: each launch advances every cell by
 // up to `chunk` events of the closed-loop step (acquire, release, standby
-// expiry) under the fifo / tas / prop / libasl hooks, one instantiation per
-// policy.  Results are bit-identical to the plain PyTorch step
-// (repro_torch/core/simlock.py::_step) and to the JAX package.
+// expiry) under the fifo / tas / prop / libasl / edf / shfl / dvfs_race
+// hooks, one instantiation per policy and one for merged policy sets that
+// switches on each cell's policy id at every hook (a warp is one cell, so
+// the branch is uniform).  Three runtime gates, read once per launch, add
+// the long-epoch draw, the blocking-lock wakeup on queue-pop handoffs and
+// the energy integration.  Results are bit-identical to the plain PyTorch
+// step (repro_torch/core/simlock.py::_step) and to the JAX package.
 //
 // What bounds it on this card: each cell is one serial chain of events.
 // Per launch a cell's state is read once and written once (a few hundred
@@ -37,21 +41,33 @@
 // each lane sees every store in its own program order); the lanes work
 // apart only where the step is per core: each lane offers its own
 // t_ready for the head of the clock (lowest core on ties, as jnp.argmin,
-// by the ballot's first lane), and in
-// tas / libasl's pick_next each lane computes its own core's weight.  The
+// by the ballot's first lane); in tas / libasl's pick_next each lane
+// computes its own core's weight; edf / shfl / dvfs_race scan the waiters
+// as a warp min (max) over each lane's key, the first lane at it winning;
+// and each lane integrates its own core's energy in a register, its
+// phase powers and edf / dvfs_race's per-core terms set once per launch.  The
 // weights' prefix sum stays left to right in f32 (each lane runs the same
 // serial sum over the weights in shared memory and keeps its own core's
 // partial), so the pick is bit-identical to the plain version's cumsum.
 // The latency rings stay in device memory, written by lane 0 and never
 // read.  The mutable state goes back to device memory once, at the end.
-// Shared memory per cell: (12 n + 2 n s + s + 2 l n + 6 l + 32) words for
-// n cores, s segments and l locks; up to four cells (warps) a block.
+// The stage's shared-memory base, the launch's sizes and the ring moduli
+// are held in registers behind empty asm statements: left to itself,
+// ptxas re-derived them from the CTA id and the constant bank in every
+// event once the kernel grew its gates (fifo and prop ~25 % slower a
+// launch on small grids until they were pinned).
+// Shared memory per cell: (13 n + 2 n s + s + 2 l n + 8 l + 32) words for
+// n cores, s segments and l locks (the long-epoch scales and shfl /
+// dvfs_race's counters took n + 2 l of it); up to four cells (warps) a
+// block.
 //
 // Bit-exactness: build with -fmad=false (no a*b+c contraction), keep the
 // reference's compiled f32 operation order (its AIMD unit is one multiply
-// by a folded constant), truncate f32->i32 toward zero, take the
-// weighted-pick prefix sum left to right, and split the RNG key on every
-// release of tas / libasl (even when no standby pick follows).
+// by a folded constant; its energy update one FMA, written as fmaf),
+// truncate f32->i32 toward zero, take the weighted-pick prefix sum left to
+// right, split the RNG key on every release when long epochs are on and
+// then again in tas / libasl's pick (even when no standby pick follows),
+// and commit nothing of a merged set's other members.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -62,19 +78,29 @@ namespace {
 constexpr int kNonCrit = 0, kStandby = 1, kQueued = 2, kHolder = 3,
               kSpin = 4;
 constexpr int kInf = 1 << 30;
-constexpr int kFifo = 0, kTas = 1, kProp = 2, kLibasl = 3;
+// Policy ids (the registry's order); kMerged is the merged sets'
+// instantiation, which reads each cell's id.
+constexpr int kFifo = 0, kTas = 1, kProp = 2, kLibasl = 3, kEdf = 4,
+              kShfl = 5, kDvfsRace = 6, kMerged = 7;
 constexpr int kMaxWarpsPerBlock = 4;
 constexpr int kSmemLimit = 232448;  // dynamic shared memory of one block
 constexpr unsigned kFull = 0xffffffffu;
 
 // The operands, in this order (the wrapper's _ORDER): tables, params,
 // state.  All cell-major and contiguous.
+// Null where the launch's gates and policies do not read them: pol_id
+// (merged sets), long_prob, long_scale and scale (long epochs), wakeup,
+// the power tables, n_active and energy (the energy model), dvfs (energy,
+// dvfs_race), race_w, race_bound and race_ctr (dvfs_race), shfl_bound and
+// shfl_ctr (shfl).
 enum Operand {
-  kBig, kCsDur, kNcDur, kInter, kSegLock, kSloScale,
-  kSlo, kWBig, kPropN, kHorizon,
+  kBig, kCsDur, kNcDur, kInter, kSegLock, kSloScale, kDvfs, kRaceW, kPCs,
+  kPSpin, kPPark, kPIdle,
+  kSlo, kPolId, kWBig, kPropN, kNActive, kHorizon, kLongProb, kLongScale,
+  kWakeup, kShflBound, kRaceBound,
   kT, kKey, kPhase, kTReady, kSeg, kEpochStart, kAttemptT, kWindow, kUnit,
-  kQ, kQHead, kQTail, kHolderOp, kPropCtr, kEpLat, kEpCnt, kCsLat, kCsCnt,
-  kEvents, kNumOperands
+  kScale, kQ, kQHead, kQTail, kHolderOp, kPropCtr, kShflCtr, kRaceCtr,
+  kEpLat, kEpCnt, kCsLat, kCsCnt, kEvents, kEnergy, kNumOperands
 };
 
 // x mod d for 32-bit x >= 0 by two multiplies (Lemire, Kaser and Kurz,
@@ -96,13 +122,14 @@ __device__ __forceinline__ int mod(int x, FastMod f) {
 struct Args {
   void* p[kNumOperands];
   int n_cells, n, s, l, cap, chunk, max_events;
+  int long_on, wakeup_on, energy_on;  // the gates, uniform per launch
   float unit_mul, max_window;
   FastMod mod_n, mod_cap;
 };
 
 // Words of shared memory one cell takes (see the header).
 __host__ __device__ constexpr int cell_words(int n, int s, int l) {
-  return 12 * n + 2 * n * s + s + 2 * l * n + 6 * l + 32;
+  return 13 * n + 2 * n * s + s + 2 * l * n + 8 * l + 32;
 }
 
 // One cell: pointers into its shared-memory stage, its rings in device
@@ -118,11 +145,14 @@ struct Cell {
   int* cs_cnt;
   float* window;
   float* unit;
+  float* scale;      // each core's long-epoch scale
   int* q;
   int* q_head;
   int* q_tail;
   int* holder;
   int* prop_ctr;
+  int* shfl_ctr;
+  int* race_ctr;
   // read-only, staged
   int* big;
   int* inter;
@@ -136,10 +166,13 @@ struct Cell {
   float* cs_lat;
   // registers
   int tr;            // this lane's core's t_ready
+  int slo_t;         // this lane's core's SLO in ticks, capped (edf)
+  float score;       // this lane's core's race score (dvfs_race)
   uint32_t k0, k1;
-  float slo, w_big;
-  int prop_n;
+  float slo, w_big, long_prob, long_scale;
+  int prop_n, pol, wakeup, shfl_bound, race_bound;
   int n, s, cap, lane;
+  bool long_on;
   FastMod mod_n, mod_cap;
   float unit_mul, max_window;
 };
@@ -157,6 +190,7 @@ __device__ __forceinline__ void carve(Cell& c, int* base, int n, int s,
   c.cs_cnt = p;       p += n;
   c.window = reinterpret_cast<float*>(p);     p += n;
   c.unit = reinterpret_cast<float*>(p);       p += n;
+  c.scale = reinterpret_cast<float*>(p);      p += n;
   c.big = p;          p += n;
   c.inter = p;        p += n;
   c.slo_scale = reinterpret_cast<float*>(p);  p += n;
@@ -168,6 +202,8 @@ __device__ __forceinline__ void carve(Cell& c, int* base, int n, int s,
   c.q_tail = p;       p += 2 * l;
   c.holder = p;       p += l;
   c.prop_ctr = p;     p += l;
+  c.shfl_ctr = p;     p += l;
+  c.race_ctr = p;     p += l;
   c.wbuf = reinterpret_cast<float*>(p);
 }
 
@@ -283,11 +319,14 @@ __device__ __forceinline__ void set_ready(Cell& c, int core, int v) {
   if (c.lane == core) c.tr = v;
 }
 
-// Make `core` the holder of its segment's lock; schedule its release.
-__device__ __forceinline__ void grant(Cell& c, int core, int t) {
+// Make `core` the holder of its segment's lock; schedule its release.  A
+// queue-pop handoff (`handoff`) pays the wakeup when that gate is on.
+__device__ __forceinline__ void grant(Cell& c, int core, int t,
+                                      bool handoff = false) {
   c.holder[c.lk[core]] = core;
   c.phase[core] = kHolder;
-  set_ready(c, core, t + c.cs_dur[core * c.s + c.seg[core]]);
+  const int dur = c.cs_dur[core * c.s + c.seg[core]];
+  set_ready(c, core, t + (handoff ? dur + c.wakeup : dur));
 }
 
 __device__ __forceinline__ void park(Cell& c, int core, int ph) {
@@ -304,11 +343,30 @@ __device__ __forceinline__ void record(const Cell& c, float* buf, int* cnt,
   cnt[core] = k + 1;
 }
 
+// Is this lane's core parked in QUEUED on lock l (edf / shfl / dvfs_race's
+// waiter set)?
+__device__ __forceinline__ bool waiting(const Cell& c, int l) {
+  return c.lane < c.n && c.phase[c.lane] == kQueued && c.lk[c.lane] == l;
+}
+
+// The first lane holding the warp's least `key` (lane 0 when every key is
+// the same), as jnp.argmin picks the lowest index.
+__device__ __forceinline__ int first_min(int key) {
+  const int m = __reduce_min_sync(kFull, key);
+  return __ffs(__ballot_sync(kFull, key == m)) - 1;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
+  return v;
+}
+
 // ------------------------------------------------------------ handlers ---
 
 template <int P>
 __device__ __forceinline__ void acquire(Cell& c, int core, int t) {
-  c.attempt_t[core] = t;
   const int l = lock_of(c, core);
   const bool free = c.holder[l] == -1;
   if (P == kFifo) {
@@ -331,7 +389,7 @@ __device__ __forceinline__ void acquire(Cell& c, int core, int t) {
       enq(c, l, c.big[core] == 1 ? 0 : 1, core);
       park(c, core, kQueued);
     }
-  } else {  // kLibasl
+  } else if (P == kLibasl) {
     if (free && qlen(c, l, 0) == 0) {
       grant(c, core, t);
     } else if (c.big[core] == 1) {
@@ -342,6 +400,13 @@ __device__ __forceinline__ void acquire(Cell& c, int core, int t) {
       const int win = static_cast<int>(fminf(c.window[core], c.max_window));
       c.phase[core] = kStandby;
       set_ready(c, core, t + max(win, 0));
+    }
+  } else {  // edf, shfl, dvfs_race: queue-less
+    const bool any_waiting = __any_sync(kFull, waiting(c, l));
+    if (free && !any_waiting) {
+      grant(c, core, t);
+    } else {
+      park(c, core, kQueued);
     }
   }
 }
@@ -368,11 +433,21 @@ __device__ __forceinline__ void aimd(Cell& c, int core, float latency) {
   c.unit[core] = u;
 }
 
+// shfl / dvfs_race: grant `pick` (when anyone waits) and count the grants
+// in a row that bypassed the FIFO `head`.
+__device__ __forceinline__ void bounded_grant(Cell& c, int* ctr, int l,
+                                              int pick, int head, int t) {
+  if (__any_sync(kFull, waiting(c, l))) {
+    ctr[l] = pick != head ? ctr[l] + 1 : 0;
+    grant(c, pick, t, true);
+  }
+}
+
 template <int P>
 __device__ __forceinline__ void pick_next(Cell& c, int l, int t) {
   const int j = c.lane;
   if (P == kFifo) {
-    if (qlen(c, l, 0) > 0) grant(c, deq(c, l, 0), t);
+    if (qlen(c, l, 0) > 0) grant(c, deq(c, l, 0), t, true);
   } else if (P == kTas) {
     // Each lane weighs its own core.
     const float w = (j < c.n && c.phase[j] == kSpin && lock_of(c, j) == l)
@@ -387,14 +462,14 @@ __device__ __forceinline__ void pick_next(Cell& c, int l, int t) {
     const int nb = qlen(c, l, 0), nl = qlen(c, l, 1);
     if (nb > 0 && (c.prop_ctr[l] < c.prop_n || nl == 0)) {
       c.prop_ctr[l] += 1;
-      grant(c, deq(c, l, 0), t);
+      grant(c, deq(c, l, 0), t, true);
     } else if (nl > 0) {
       c.prop_ctr[l] = 0;
-      grant(c, deq(c, l, 1), t);
+      grant(c, deq(c, l, 1), t, true);
     }
-  } else {  // kLibasl
+  } else if (P == kLibasl) {
     const bool nonempty = qlen(c, l, 0) > 0;
-    if (nonempty) grant(c, deq(c, l, 0), t);
+    if (nonempty) grant(c, deq(c, l, 0), t, true);
     // Queue empty -> a standby core may grab the free lock.
     const float w =
         (j < c.n && c.phase[j] == kStandby && lock_of(c, j) == l) ? 1.0f
@@ -404,7 +479,64 @@ __device__ __forceinline__ void pick_next(Cell& c, int l, int t) {
     bool any;
     const int pick = weighted_pick(c, w, s0, s1, any);
     if (!nonempty && any) grant(c, pick, t);
+  } else if (P == kEdf) {
+    // Earliest deadline, then earliest attempt, then lowest core.
+    // (Every lane reaches each warp collective: none sits behind &&.)
+    const bool wt = waiting(c, l);
+    const int dl = wt ? c.epoch_start[j] + c.slo_t : kInf;
+    const int dl_min = __reduce_min_sync(kFull, dl);
+    const bool tie = wt && dl == dl_min;
+    const int pick = first_min(tie ? c.attempt_t[j] : kInf);
+    if (__any_sync(kFull, wt)) grant(c, pick, t, true);
+  } else if (P == kShfl) {
+    // A big waiter jumps the FIFO head, at most shfl_bound times in a row.
+    const bool wt = waiting(c, l);
+    const bool big_wt = wt && c.big[j] == 1;
+    const int head = first_min(wt ? c.attempt_t[j] : kInf);
+    const int big_head = first_min(big_wt ? c.attempt_t[j] : kInf);
+    const bool any_big = __any_sync(kFull, big_wt);
+    const bool shuffle = any_big && c.shfl_ctr[l] < c.shfl_bound;
+    bounded_grant(c, c.shfl_ctr, l, shuffle ? big_head : head, head, t);
+  } else if (P == kDvfsRace) {
+    // The highest race score, earliest attempt among equals; the FIFO
+    // head once race_bound grants in a row bypassed it.
+    const bool wt = waiting(c, l);
+    const float score = wt ? c.score : -1.0f;
+    const float best = warp_max(score);
+    const bool tie = wt && score == best;
+    const int fast = first_min(tie ? c.attempt_t[j] : kInf);
+    const int head = first_min(wt ? c.attempt_t[j] : kInf);
+    bounded_grant(c, c.race_ctr, l,
+                  c.race_ctr[l] >= c.race_bound ? head : fast, head, t);
   }
+}
+
+// Run hook `F<policy>` of the cell's policy: the instantiation's own, or,
+// in the merged instantiation, the one the cell's id names (uniform over
+// the warp: a warp is one cell).
+#define BY_POLICY(P, F, ...)                                   \
+  do {                                                         \
+    if constexpr (P == kMerged) {                              \
+      switch (c.pol) {                                         \
+        case kFifo: F<kFifo>(__VA_ARGS__); break;              \
+        case kTas: F<kTas>(__VA_ARGS__); break;                \
+        case kProp: F<kProp>(__VA_ARGS__); break;              \
+        case kLibasl: F<kLibasl>(__VA_ARGS__); break;          \
+        case kEdf: F<kEdf>(__VA_ARGS__); break;                \
+        case kShfl: F<kShfl>(__VA_ARGS__); break;              \
+        default: F<kDvfsRace>(__VA_ARGS__); break;             \
+      }                                                        \
+    } else {                                                   \
+      F<P>(__VA_ARGS__);                                       \
+    }                                                          \
+  } while (0)
+
+// A duration of the next epoch's program under its long-epoch scale
+// (int(float(d) * scale), truncated); unscaled when long epochs are off.
+__device__ __forceinline__ int scaled(const Cell& c, int d, float scale) {
+  return c.long_on
+             ? static_cast<int>(__fmul_rn(static_cast<float>(d), scale))
+             : d;
 }
 
 template <int P>
@@ -416,21 +548,36 @@ __device__ __forceinline__ void release(Cell& c, int core, int t) {
   const bool last = s == c.s - 1;
   const float ep_latency = static_cast<float>(t - c.epoch_start[core]);
   if (last) record(c, c.ep_lat, c.ep_cnt, core, ep_latency);
-  if (P == kLibasl && last && c.big[core] == 0) aimd(c, core, ep_latency);
-  const int inter = c.inter[core];
+  const bool libasl = P == kLibasl || (P == kMerged && c.pol == kLibasl);
+  if (libasl && last && c.big[core] == 0) aimd(c, core, ep_latency);
+  // Long epochs: every release splits the key; an epoch end draws the
+  // next epoch's scale of its non-critical work.
+  float scale = 1.0f;
+  if (c.long_on) {
+    uint32_t s0, s1;
+    advance_key(c, s0, s1);
+    scale = c.scale[core];
+    if (last) {
+      scale = uniform01(s0, s1) < c.long_prob ? c.long_scale : 1.0f;
+      c.scale[core] = scale;
+    }
+  }
+  const int inter = scaled(c, c.inter[core], scale);
   if (last) {
     c.seg[core] = 0;
     c.lk[core] = c.seg_lock[0];
     c.epoch_start[core] = t + inter;
-    set_ready(c, core, t + inter + c.nc_dur[core * c.s]);
+    set_ready(c, core, t + inter + scaled(c, c.nc_dur[core * c.s], scale));
   } else {
     c.seg[core] = s + 1;
     c.lk[core] = c.seg_lock[s + 1];
-    set_ready(c, core, t + c.nc_dur[core * c.s + min(s + 1, c.s - 1)]);
+    set_ready(c, core, t + scaled(c, c.nc_dur[core * c.s +
+                                               min(s + 1, c.s - 1)],
+                                  scale));
   }
   c.phase[core] = kNonCrit;
   c.holder[l] = -1;
-  pick_next<P>(c, l, t);
+  BY_POLICY(P, pick_next, c, l, t);
 }
 
 // One event of one cell (the caller checked that the cell is live).
@@ -438,11 +585,13 @@ template <int P>
 __device__ __forceinline__ void step(Cell& c, int core, int t) {
   const int ph = c.phase[core];
   if (ph == kNonCrit) {
-    acquire<P>(c, core, t);
+    c.attempt_t[core] = t;
+    BY_POLICY(P, acquire, c, core, t);
   } else if (ph == kHolder) {
     release<P>(c, core, t);
   } else if (ph == kStandby) {
-    if (P == kLibasl) standby_expiry(c, core, t);
+    if (P == kLibasl || (P == kMerged && c.pol == kLibasl))
+      standby_expiry(c, core, t);
   } else if (ph == kQueued || ph == kSpin) {
     set_ready(c, core, kInf);  // defensive re-park
   }
@@ -453,6 +602,13 @@ __device__ __forceinline__ T* at(const Args& a, Operand k, size_t offset) {
   return static_cast<T*>(a.p[k]) + offset;
 }
 
+// An optional operand's pointer, or null where the launch does not pass it.
+template <typename T>
+__device__ __forceinline__ T* at_opt(const Args& a, Operand k,
+                                     size_t offset) {
+  return a.p[k] ? static_cast<T*>(a.p[k]) + offset : nullptr;
+}
+
 template <int P>
 __global__ void __launch_bounds__(kMaxWarpsPerBlock * 32)
     fused_chunk_kernel(const Args a, int warps_per_block) {
@@ -461,7 +617,10 @@ __global__ void __launch_bounds__(kMaxWarpsPerBlock * 32)
   const int w = threadIdx.x >> 5;
   const int b = blockIdx.x * warps_per_block + w;
   if (b >= a.n_cells) return;  // uniform across the warp
-  const int n = a.n, s = a.s, l = a.l;
+  // Pinned in registers (see the header).
+  int n = a.n, s = a.s, l = a.l, chunk = a.chunk, max_events = a.max_events;
+  asm volatile("" : "+r"(n), "+r"(s), "+r"(l), "+r"(chunk),
+               "+r"(max_events));
   const size_t cb = b, ns = static_cast<size_t>(n) * s;
 
   // Live at launch start?  A cell that is not loads and stores no more.
@@ -469,11 +628,15 @@ __global__ void __launch_bounds__(kMaxWarpsPerBlock * 32)
   const int tr0 = lane < n ? g_t_ready[lane] : INT_MAX;
   int events = *at<int>(a, kEvents, cb);
   const int horizon = *at<int>(a, kHorizon, cb);
-  if (!(__reduce_min_sync(kFull, tr0) < horizon && events < a.max_events))
+  if (!(__reduce_min_sync(kFull, tr0) < horizon && events < max_events))
     return;
 
+  // The cell's stage as a 32-bit shared address, pinned in a register.
+  unsigned stage = static_cast<unsigned>(
+      __cvta_generic_to_shared(smem + w * cell_words(n, s, l)));
+  asm volatile("" : "+r"(stage));
   Cell c;
-  carve(c, smem + w * cell_words(n, s, l), n, s, l);
+  carve(c, static_cast<int*>(__cvta_shared_to_generic(stage)), n, s, l);
   c.lane = lane;
   c.tr = tr0;
   c.n = n;
@@ -481,11 +644,22 @@ __global__ void __launch_bounds__(kMaxWarpsPerBlock * 32)
   c.cap = a.cap;
   c.mod_n = a.mod_n;
   c.mod_cap = a.mod_cap;
+  asm volatile("" : "+r"(c.cap), "+l"(c.mod_n.m), "+r"(c.mod_n.d),
+               "+l"(c.mod_cap.m), "+r"(c.mod_cap.d));
   c.unit_mul = a.unit_mul;
   c.max_window = a.max_window;
+  c.long_on = a.long_on != 0;
   c.slo = *at<float>(a, kSlo, cb);
+  c.pol = P == kMerged ? *at<int>(a, kPolId, cb) : P;
   c.w_big = *at<float>(a, kWBig, cb);
   c.prop_n = *at<int>(a, kPropN, cb);
+  c.long_prob = c.long_on ? *at<float>(a, kLongProb, cb) : 0.0f;
+  c.long_scale = c.long_on ? *at<float>(a, kLongScale, cb) : 1.0f;
+  c.wakeup = a.wakeup_on ? *at<int>(a, kWakeup, cb) : 0;
+  const int* g_shfl_bound = at_opt<int>(a, kShflBound, cb);
+  const int* g_race_bound = at_opt<int>(a, kRaceBound, cb);
+  c.shfl_bound = g_shfl_bound ? *g_shfl_bound : 0;
+  c.race_bound = g_race_bound ? *g_race_bound : 0;
   const long long* g_key = at<long long>(a, kKey, 2 * cb);
   c.k0 = static_cast<uint32_t>(g_key[0]);
   c.k1 = static_cast<uint32_t>(g_key[1]);
@@ -494,8 +668,14 @@ __global__ void __launch_bounds__(kMaxWarpsPerBlock * 32)
   c.cs_lat = at<float>(a, kCsLat, cb * n * a.cap);
 
   // Stage the cell: every load of a pass is issued before its stores, so
-  // each pass costs one round trip to device memory.
+  // each pass costs one round trip to device memory.  Each lane keeps its
+  // own core's per-launch constants in registers.
   const size_t cn = cb * n, cl = cb * l, cq = cb * 2 * l;
+  const bool active = a.energy_on && lane < *at<int>(a, kNActive, cb);
+  const float* g_dvfs = at_opt<float>(a, kDvfs, cn);
+  const float* g_race_w = at_opt<float>(a, kRaceW, cn);
+  float energy = 0.0f, p_act = 0.0f, p_spin = 0.0f, p_park = 0.0f,
+        p_idle = 0.0f;
   if (lane < n) {
     const int phase = at<int>(a, kPhase, cn)[lane];
     const int seg = at<int>(a, kSeg, cn)[lane];
@@ -505,9 +685,11 @@ __global__ void __launch_bounds__(kMaxWarpsPerBlock * 32)
     const int cs_cnt = at<int>(a, kCsCnt, cn)[lane];
     const float window = at<float>(a, kWindow, cn)[lane];
     const float unit = at<float>(a, kUnit, cn)[lane];
+    const float scale = c.long_on ? at<float>(a, kScale, cn)[lane] : 1.0f;
     const int big = at<int>(a, kBig, cn)[lane];
     const int inter = at<int>(a, kInter, cn)[lane];
     const float slo_scale = at<float>(a, kSloScale, cn)[lane];
+    const float dvfs = g_dvfs ? g_dvfs[lane] : 1.0f;
     c.phase[lane] = phase;
     c.seg[lane] = seg;
     c.epoch_start[lane] = epoch_start;
@@ -516,9 +698,25 @@ __global__ void __launch_bounds__(kMaxWarpsPerBlock * 32)
     c.cs_cnt[lane] = cs_cnt;
     c.window[lane] = window;
     c.unit[lane] = unit;
+    c.scale[lane] = scale;
     c.big[lane] = big;
     c.inter[lane] = inter;
     c.slo_scale[lane] = slo_scale;
+    // edf's deadline offset: the SLO in ticks, capped, truncated.
+    c.slo_t = static_cast<int>(
+        fminf(__fmul_rn(c.slo, slo_scale), a.max_window));
+    // dvfs_race's score: race_w * dvfs * (1 + big).
+    if (g_race_w)
+      c.score = __fmul_rn(__fmul_rn(g_race_w[lane], dvfs),
+                          __fadd_rn(1.0f, static_cast<float>(big)));
+    if (a.energy_on) {
+      energy = at<float>(a, kEnergy, cn)[lane];
+      const float f3 = __fmul_rn(__fmul_rn(dvfs, dvfs), dvfs);
+      p_act = __fmul_rn(at<float>(a, kPCs, cn)[lane], f3);
+      p_spin = __fmul_rn(at<float>(a, kPSpin, cn)[lane], f3);
+      p_park = at<float>(a, kPPark, cn)[lane];
+      p_idle = at<float>(a, kPIdle, cn)[lane];
+    }
   }
   const int* g_cs_dur = at<int>(a, kCsDur, cb * ns);
   const int* g_nc_dur = at<int>(a, kNcDur, cb * ns);
@@ -528,6 +726,8 @@ __global__ void __launch_bounds__(kMaxWarpsPerBlock * 32)
   const int* g_q_tail = at<int>(a, kQTail, cq);
   const int* g_holder = at<int>(a, kHolderOp, cl);
   const int* g_prop_ctr = at<int>(a, kPropCtr, cl);
+  int* g_shfl_ctr = at_opt<int>(a, kShflCtr, cl);
+  int* g_race_ctr = at_opt<int>(a, kRaceCtr, cl);
   const int n_ns = n * s, n_q = 2 * l * n;
 #pragma unroll 1
   for (int i = lane; i < max(n_ns, n_q); i += 32) {
@@ -539,6 +739,8 @@ __global__ void __launch_bounds__(kMaxWarpsPerBlock * 32)
     const int qt = i < 2 * l ? g_q_tail[i] : 0;
     const int ho = i < l ? g_holder[i] : 0;
     const int pc = i < l ? g_prop_ctr[i] : 0;
+    const int sc = i < l && g_shfl_ctr ? g_shfl_ctr[i] : 0;
+    const int rc = i < l && g_race_ctr ? g_race_ctr[i] : 0;
     if (i < n_ns) {
       c.cs_dur[i] = cs;
       c.nc_dur[i] = nc;
@@ -552,18 +754,31 @@ __global__ void __launch_bounds__(kMaxWarpsPerBlock * 32)
     if (i < l) {
       c.holder[i] = ho;
       c.prop_ctr[i] = pc;
+      c.shfl_ctr[i] = sc;
+      c.race_ctr[i] = rc;
     }
   }
   __syncwarp();
   if (lane < n) c.lk[lane] = c.seg_lock[c.seg[lane]];
   __syncwarp();
 
-  for (int it = 0; it < a.chunk; ++it) {
+  for (int it = 0; it < chunk; ++it) {
     // Head of the event clock: min t_ready, lowest core on ties.
     const int tr = lane < n ? c.tr : INT_MAX;
     const int t_min = __reduce_min_sync(kFull, tr);
-    if (!(t_min < horizon && events < a.max_events)) break;
+    if (!(t_min < horizon && events < max_events)) break;
     const int core = __ffs(__ballot_sync(kFull, tr == t_min)) - 1;
+    if (a.energy_on && lane < n) {
+      // This lane's core spent the clock's advance in its phase.
+      const int ph = c.phase[lane];
+      const float p =
+          !active ? p_idle
+          : ph == kNonCrit || ph == kHolder ? p_act
+          : ph == kSpin || ph == kStandby   ? p_spin
+          : ph == kQueued                   ? p_park
+                                            : p_idle;
+      energy = fmaf(static_cast<float>(t_min - t), p, energy);
+    }
     t = t_min;
     events += 1;
     step<P>(c, core, t);
@@ -571,7 +786,10 @@ __global__ void __launch_bounds__(kMaxWarpsPerBlock * 32)
   }
 
   // Write the mutable state back once.
-  if (lane < n) g_t_ready[lane] = c.tr;
+  if (lane < n) {
+    g_t_ready[lane] = c.tr;
+    if (a.energy_on) at<float>(a, kEnergy, cn)[lane] = energy;
+  }
   warp_copy(at<int>(a, kPhase, cn), c.phase, n, lane);
   warp_copy(at<int>(a, kSeg, cn), c.seg, n, lane);
   warp_copy(at<int>(a, kEpochStart, cn), c.epoch_start, n, lane);
@@ -580,11 +798,14 @@ __global__ void __launch_bounds__(kMaxWarpsPerBlock * 32)
   warp_copy(at<int>(a, kCsCnt, cn), c.cs_cnt, n, lane);
   warp_copy(at<float>(a, kWindow, cn), c.window, n, lane);
   warp_copy(at<float>(a, kUnit, cn), c.unit, n, lane);
+  if (c.long_on) warp_copy(at<float>(a, kScale, cn), c.scale, n, lane);
   warp_copy(at<int>(a, kQ, cq * n), c.q, 2 * l * n, lane);
   warp_copy(at<int>(a, kQHead, cq), c.q_head, 2 * l, lane);
   warp_copy(at<int>(a, kQTail, cq), c.q_tail, 2 * l, lane);
   warp_copy(at<int>(a, kHolderOp, cl), c.holder, l, lane);
   warp_copy(at<int>(a, kPropCtr, cl), c.prop_ctr, l, lane);
+  if (g_shfl_ctr) warp_copy(g_shfl_ctr, c.shfl_ctr, l, lane);
+  if (g_race_ctr) warp_copy(g_race_ctr, c.race_ctr, l, lane);
   if (lane == 0) {
     *at<int>(a, kT, cb) = t;
     *at<int>(a, kEvents, cb) = events;
@@ -620,9 +841,11 @@ extern "C" {
 int simstep_cell_bytes(int n, int s, int l) { return 4 * cell_words(n, s, l); }
 
 // Advance every cell by up to `chunk` events on `stream`.  `operands`
-// holds the 29 device pointers (tables, params, state; the wrapper's
-// _ORDER) into contiguous cell-major tensors; `ints` holds n_cells, n, s,
-// l, cap, policy, chunk, max_events; `floats` the AIMD unit factor and
+// holds the 46 device pointers (tables, params, state; the wrapper's
+// _ORDER) into contiguous cell-major tensors, the pol slots null where no
+// policy of the launch has them; `ints` holds n_cells, n, s, l, cap,
+// policy (its id, or -1 for a merged set), chunk, max_events and the
+// long-epoch, wakeup and energy gates; `floats` the AIMD unit factor and
 // the window cap.  Returns the cudaError_t of the launch (0 = success);
 // the caller raises on anything else.
 int simstep_fused_chunk(void* const* operands, const int* ints,
@@ -638,6 +861,9 @@ int simstep_fused_chunk(void* const* operands, const int* ints,
   a.cap = ints[4];
   a.chunk = ints[6];
   a.max_events = ints[7];
+  a.long_on = ints[8];
+  a.wakeup_on = ints[9];
+  a.energy_on = ints[10];
   a.unit_mul = floats[0];
   a.max_window = floats[1];
   a.mod_n = fast_mod(static_cast<unsigned>(a.n));
@@ -652,6 +878,14 @@ int simstep_fused_chunk(void* const* operands, const int* ints,
       return launch<kProp>(a, st);
     case kLibasl:
       return launch<kLibasl>(a, st);
+    case kEdf:
+      return launch<kEdf>(a, st);
+    case kShfl:
+      return launch<kShfl>(a, st);
+    case kDvfsRace:
+      return launch<kDvfsRace>(a, st);
+    case -1:
+      return launch<kMerged>(a, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

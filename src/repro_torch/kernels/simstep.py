@@ -24,70 +24,136 @@ import ctypes
 
 import torch
 
+from repro_torch.core import simlock
+from repro_torch.core.aimd import unit_factor
+from repro_torch.core.policies import policy_ids
+from repro_torch.core.policies.base import ticks
 from repro_torch.kernels import build
 
-_TABLES_I32 = ("big", "cs_dur", "nc_dur", "inter", "seg_lock")
-_STATE_I32 = ("t", "phase", "t_ready", "seg", "epoch_start", "attempt_t",
-              "q", "q_head", "q_tail", "holder", "prop_ctr", "ep_cnt",
-              "cs_cnt", "events")
-_STATE_F32 = ("window", "unit", "ep_lat", "cs_lat")
-_POLICY_IDS = {"fifo": 0, "tas": 1, "prop": 2, "libasl": 3}
+# The kernel's operands in its order (csrc/simstep.cu, enum Operand):
+# tables, params, state, as (name, dtype).
+_I32, _F32, _I64 = torch.int32, torch.float32, torch.int64
+_COLUMNS = ("slo_scale", "dvfs", "race_w", "p_cs", "p_spin", "p_park",
+            "p_idle")
+# Operands a launch passes only where its gates or policies read them
+# (null pointers otherwise), so the fig1 main path passes the 29 it reads.
+_OPTIONAL = frozenset((
+    "pol_id", "long_prob", "long_scale", "scale", "wakeup", "dvfs",
+    "race_w", "p_cs", "p_spin", "p_park", "p_idle", "n_active", "energy",
+    "shfl_bound", "shfl_ctr", "race_bound", "race_ctr"))
+_ORDER = (
+    ("big", _I32), ("cs_dur", _I32), ("nc_dur", _I32), ("inter", _I32),
+    ("seg_lock", _I32), ("slo_scale", _F32), ("dvfs", _F32),
+    ("race_w", _F32), ("p_cs", _F32), ("p_spin", _F32), ("p_park", _F32),
+    ("p_idle", _F32),
+    ("slo", _F32), ("pol_id", _I32), ("w_big", _F32), ("prop_n", _I32),
+    ("n_active", _I32), ("horizon", _I32), ("long_prob", _F32),
+    ("long_scale", _F32), ("wakeup", _I32), ("shfl_bound", _I32),
+    ("race_bound", _I32),
+    ("t", _I32), ("key", _I64), ("phase", _I32), ("t_ready", _I32),
+    ("seg", _I32), ("epoch_start", _I32), ("attempt_t", _I32),
+    ("window", _F32), ("unit", _F32), ("scale", _F32), ("q", _I32),
+    ("q_head", _I32), ("q_tail", _I32), ("holder", _I32),
+    ("prop_ctr", _I32), ("shfl_ctr", _I32), ("race_ctr", _I32),
+    ("ep_lat", _F32), ("ep_cnt", _I32), ("cs_lat", _F32), ("cs_cnt", _I32),
+    ("events", _I32), ("energy", _F32))
+_MERGED = -1                         # the merged sets' instantiation
 _MAX_CORES = 32
 
 
 def fused_chunk_ref(tables, params, state, chunk: int, cfg):
     """Plain PyTorch version: ``chunk`` masked steps, in place."""
-    from repro_torch.core.simlock import _step
     for _ in range(max(int(chunk), 1)):
-        _step(cfg, tables, params, state)
+        simlock._step(cfg, tables, params, state)
     return state
 
 
+_TABLE_FIELDS = frozenset(("big", "cs_dur", "nc_dur", "inter", "seg_lock"))
+_PARAM_FIELDS = frozenset(("slo", "pol_id", "w_big", "prop_n", "n_active",
+                           "horizon", "long_prob", "long_scale", "wakeup"))
+# Each operand's shape, by its sizes' names (B cells, N cores, S
+# segments, L locks, C ring slots); [B, N] unless listed.
+_SHAPES = {"cs_dur": "bns", "nc_dur": "bns", "seg_lock": "bs", "key": "b2",
+           "q": "bl2n", "q_head": "bl2", "q_tail": "bl2", "holder": "bl",
+           "prop_ctr": "bl", "shfl_ctr": "bl", "race_ctr": "bl",
+           "ep_lat": "bnc", "cs_lat": "bnc"}
+
+
+def _source(k: str) -> tuple:
+    """(where operand ``k`` lives, the names of its sizes)."""
+    where = ("col" if k in _COLUMNS else
+             "pm.pol" if k in ("shfl_bound", "race_bound") else
+             "st.pol" if k in ("shfl_ctr", "race_ctr") else
+             "tables" if k in _TABLE_FIELDS else
+             "params" if k in _PARAM_FIELDS else "state")
+    dims = _SHAPES.get(k, "b" if where in ("params", "pm.pol")
+                       or k in ("t", "events") else "bn")
+    return where, dims
+
+
+def _needs(cfg) -> frozenset:
+    """The optional operands a launch under ``cfg`` reads."""
+    names = cfg.policy_set or (cfg.policy,)
+    need = set()
+    if cfg.policy_set:
+        need.add("pol_id")
+    if cfg.long_epoch_prob > 0.0:
+        need |= {"long_prob", "long_scale", "scale"}
+    if cfg.wakeup_us > 0.0:
+        need.add("wakeup")
+    if simlock._energy_on(cfg):
+        need |= {"dvfs", "p_cs", "p_spin", "p_park", "p_idle", "n_active",
+                 "energy"}
+    if "dvfs_race" in names:
+        need |= {"dvfs", "race_w", "race_bound", "race_ctr"}
+    if "shfl" in names:
+        need |= {"shfl_bound", "shfl_ctr"}
+    return frozenset(need)
+
+
+# (name, dtype, where, sizes) of every operand, in the kernel's order.
+_SOURCES = tuple((k, want) + _source(k) for k, want in _ORDER)
+_INDEX = {k: i for i, (k, _) in enumerate(_ORDER)}
+_PTRS = ctypes.c_void_p * len(_ORDER)
+
+
 def _operands(tables, params, state, cfg) -> tuple:
-    """Check what the kernel takes; return its tensors and sizes."""
+    """Check what the kernel takes; return its tensors by name (only the
+    operands ``cfg``'s gates and policies read) and sizes."""
     b, n = state.t_ready.shape
     s = tables.cs_dur.shape[2]
     l = state.holder.shape[1]
     cap = state.ep_lat.shape[2]
-    shapes = {
-        "big": (b, n), "cs_dur": (b, n, s), "nc_dur": (b, n, s),
-        "inter": (b, n), "seg_lock": (b, s), "slo_scale": (b, n),
-        "slo": (b,), "w_big": (b,), "prop_n": (b,), "horizon": (b,),
-        "t": (b,), "key": (b, 2), "phase": (b, n), "t_ready": (b, n),
-        "seg": (b, n), "epoch_start": (b, n), "attempt_t": (b, n),
-        "window": (b, n), "unit": (b, n), "q": (b, l, 2, n),
-        "q_head": (b, l, 2), "q_tail": (b, l, 2), "holder": (b, l),
-        "prop_ctr": (b, l), "ep_lat": (b, n, cap), "ep_cnt": (b, n),
-        "cs_lat": (b, n, cap), "cs_cnt": (b, n), "events": (b,)}
-    ts = {k: getattr(tables, k) for k in _TABLES_I32}
-    ts["slo_scale"] = tables.col["slo_scale"]
-    ts.update({k: getattr(params, k)
-               for k in ("slo", "w_big", "prop_n", "horizon")})
-    ts.update({k: getattr(state, k)
-               for k in _STATE_I32 + _STATE_F32 + ("key",)})
-    dev = state.t.device
-    for k, x in ts.items():
-        want = (torch.int64 if k == "key" else
-                torch.float32 if k in _STATE_F32 + ("slo_scale", "slo",
-                                                    "w_big")
-                else torch.int32)
-        if x.device != dev:
-            raise ValueError(f"{k} is on {x.device}, the state on {dev}")
-        if x.dtype != want:
-            raise TypeError(f"{k} must be {want}, got {x.dtype}")
-        if tuple(x.shape) != shapes[k]:
-            raise ValueError(f"{k} must have shape {shapes[k]}, "
-                             f"got {tuple(x.shape)}")
-        if not x.is_contiguous():
+    size = {"b": b, "n": n, "s": s, "l": l, "c": cap, "2": 2}
+    shapes = {}
+    src = {"col": tables.col, "pm.pol": params.pol, "st.pol": state.pol,
+           "tables": tables, "params": params, "state": state}
+    need = _needs(cfg)
+    dev = state.t.get_device()
+    ts = {}
+    for k, want, where, dims in _SOURCES:
+        if k in _OPTIONAL and k not in need:
+            continue
+        x = src[where]
+        x = x.get(k) if isinstance(x, dict) else getattr(x, k)
+        if x is None:
+            raise ValueError(f"{cfg.policy!r} needs the pol slot {k}")
+        shape = shapes.get(dims)
+        if shape is None:
+            shape = shapes[dims] = tuple(size[d] for d in dims)
+        if not (x.dtype == want and x.get_device() == dev
+                and x.shape == shape and x.is_contiguous()):
+            if x.device != state.t.device:
+                raise ValueError(f"{k} is on {x.device}, the state on "
+                                 f"{state.t.device}")
+            if x.dtype != want:
+                raise TypeError(f"{k} must be {want}, got {x.dtype}")
+            if tuple(x.shape) != shape:
+                raise ValueError(f"{k} must have shape {shape}, "
+                                 f"got {tuple(x.shape)}")
             raise ValueError(f"{k} must be contiguous")
+        ts[k] = x
     return ts, (b, n, s, l, cap)
-
-
-_ORDER = ("big", "cs_dur", "nc_dur", "inter", "seg_lock", "slo_scale",
-          "slo", "w_big", "prop_n", "horizon", "t", "key", "phase",
-          "t_ready", "seg", "epoch_start", "attempt_t", "window", "unit",
-          "q", "q_head", "q_tail", "holder", "prop_ctr", "ep_lat", "ep_cnt",
-          "cs_lat", "cs_cnt", "events")
 
 
 _SMEM_LIMIT = 232_448                # dynamic shared memory of one block
@@ -95,9 +161,18 @@ _SMEM_LIMIT = 232_448                # dynamic shared memory of one block
 
 def cell_bytes(n: int, s: int, l: int) -> int:
     """Shared memory one cell takes in the kernel (``csrc/simstep.cu``:
-    its per-core state and tables, queues, holders and 32 pick weights),
-    for ``n`` cores, ``s`` segments and ``l`` locks."""
-    return 4 * (12 * n + 2 * n * s + s + 2 * l * n + 6 * l + 32)
+    its per-core state and tables, queues, holders, the policies'
+    per-lock counters and 32 pick weights), for ``n`` cores, ``s``
+    segments and ``l`` locks."""
+    return 4 * (13 * n + 2 * n * s + s + 2 * l * n + 8 * l + 32)
+
+
+def instantiation(cfg) -> int:
+    """The kernel instantiation a config runs: its policy's registry id,
+    or ``-1`` (the merged sets', which reads each cell's id)."""
+    if cfg.policy_set:
+        return _MERGED
+    return policy_ids()[cfg.policy]
 
 
 def _lib() -> ctypes.CDLL:
@@ -129,9 +204,6 @@ def bind(tables, params, state, chunk: int, cfg):
                          f"not {dev}")
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
-    if cfg.policy not in _POLICY_IDS:
-        raise ValueError(f"the simstep kernel runs {sorted(_POLICY_IDS)}, "
-                         f"not {cfg.policy!r}")
     if not 1 <= n <= _MAX_CORES:
         raise ValueError(f"the simstep kernel runs 1..{_MAX_CORES} cores "
                          f"per cell (one warp lane each), got {n}")
@@ -139,14 +211,15 @@ def bind(tables, params, state, chunk: int, cfg):
         raise ValueError(f"a cell of {n} cores, {s} segments and {l} locks "
                          f"takes {cell_bytes(n, s, l)} bytes of shared "
                          f"memory, over one block's {_SMEM_LIMIT}")
-    from repro_torch.core.aimd import unit_factor
-    from repro_torch.core.policies.base import ticks
     lib = _lib()
     fn = lib.simstep_fused_chunk
-    ptrs = (ctypes.c_void_p * len(_ORDER))(*(ts[k].data_ptr()
-                                             for k in _ORDER))
-    ints = (ctypes.c_int * 8)(b, n, s, l, cap, _POLICY_IDS[cfg.policy],
-                              int(chunk), int(cfg.max_events))
+    ptrs = _PTRS()                       # null where not passed
+    for k, x in ts.items():
+        ptrs[_INDEX[k]] = x.data_ptr()
+    ints = (ctypes.c_int * 11)(
+        b, n, s, l, cap, instantiation(cfg), int(chunk),
+        int(cfg.max_events), int(cfg.long_epoch_prob > 0.0),
+        int(cfg.wakeup_us > 0.0), int(simlock._energy_on(cfg)))
     # The two f32 constants of Algorithm 2: the unit factor and the cap.
     floats = (ctypes.c_float * 2)(float(unit_factor(cfg.pct)),
                                   float(ticks(cfg.max_window_us)))

@@ -61,6 +61,10 @@ def test_port_files_exist():
                  "src/repro_torch/dist/staleness.py",
                  "src/repro_torch/ckpt/checkpointer.py",
                  "src/repro_torch/launch/train.py",
+                 "src/repro_torch/core/policies/edf.py",
+                 "src/repro_torch/core/policies/shfl.py",
+                 "src/repro_torch/core/policies/dvfs_race.py",
+                 "src/repro_torch/core/energy.py",
                  "chip_smoke.py"):
         assert want in names
 
@@ -80,6 +84,15 @@ def test_port_imports_with_jax_and_repro_blocked():
             "st, _ = sl.sweep(sl.SimConfig(policy='libasl', "
             "sim_time_us=200.0), {'n_cores': [2, 8]}, device='cpu')\n"
             "assert int(st.events.min()) > 0\n"
+            "from repro_torch.core import energy\n"
+            "import repro_torch.core.policies.edf, "
+            "repro_torch.core.policies.shfl\n"
+            "import repro_torch.core.policies.dvfs_race\n"
+            "st, _ = sl.sweep(sl.SimConfig(sim_time_us=200.0, "
+            "long_epoch_prob=0.5, wakeup_us=1.0, "
+            "**energy.amp_power((1,) * 4 + (0,) * 4)), {'policy': ['edf', "
+            "'shfl', 'dvfs_race']}, device='cpu')\n"
+            "assert int(st.events.min()) > 0 and bool((st.energy > 0).all())\n"
             "import torch\n"
             "import repro_torch.kernels.mlstm_scan, repro_torch.kernels.ops\n"
             "import repro_torch.core.asl_schedule\n"

@@ -18,20 +18,32 @@ from repro.core import simlock as rsl
 from repro_torch.core import simlock as sl
 
 
+def _plain(v):
+    """A summary value as JSON: numpy scalars as Python scalars, arrays
+    (a table axis's per-cell value) as lists."""
+    if isinstance(v, np.generic):
+        return v.item()
+    if isinstance(v, np.ndarray):
+        return [_plain(x) for x in v.tolist()]
+    return v
+
+
 def summary_digests(summaries) -> list:
-    """NaN-safe digests of summaries (numpy grid scalars as floats)."""
-    return [gd.digest_summary({k: float(v) if isinstance(v, np.generic)
-                               else v for k, v in s.items()})
+    """NaN-safe digests of summaries (numpy grid values as floats)."""
+    return [gd.digest_summary({k: _plain(v) for k, v in s.items()})
             for s in summaries]
 
 
-def compare_sweep(policy, axes, product=True, **kw):
-    """Sweep both packages; assert every leaf and summary is equal."""
-    cfg = sl.SimConfig(policy=policy, sim_time_us=gd.SIM_US, **kw)
-    rcfg = rsl.SimConfig(policy=policy, sim_time_us=gd.SIM_US, **kw)
-    st, grid = sl.sweep(cfg, axes, slo_us=gd.SLO_US, seed=gd.SEED,
+def compare_grid(axes, product=True, slo_us=gd.SLO_US, **kw):
+    """Sweep both packages over one config (``SimConfig`` kwargs ``kw``,
+    the golden-digest horizon unless given); assert every leaf (the pol
+    slots included), the grid and every summary are equal.  Returns the
+    port's state and summaries."""
+    kw.setdefault("sim_time_us", gd.SIM_US)
+    cfg, rcfg = sl.SimConfig(**kw), rsl.SimConfig(**kw)
+    st, grid = sl.sweep(cfg, axes, slo_us=slo_us, seed=gd.SEED,
                         product=product, device="cpu")
-    rst, rgrid = rsl.sweep(rcfg, axes, slo_us=gd.SLO_US, seed=gd.SEED,
+    rst, rgrid = rsl.sweep(rcfg, axes, slo_us=slo_us, seed=gd.SEED,
                            product=product)
     got, want = gd.digest_state(sl.to_reference(st)), gd.digest_state(rst)
     assert sorted(got) == sorted(want)
@@ -39,11 +51,15 @@ def compare_sweep(policy, axes, product=True, **kw):
     assert sorted(grid) == sorted(rgrid)
     for k in grid:
         np.testing.assert_array_equal(grid[k], rgrid[k])
-    assert summary_digests(sl.sweep_summaries(cfg, st, grid,
-                                              slo_us=gd.SLO_US)) == \
-        summary_digests(rsl.sweep_summaries(rcfg, rst, rgrid,
-                                            slo_us=gd.SLO_US))
-    return st
+    summ = sl.sweep_summaries(cfg, st, grid, slo_us=slo_us)
+    assert summary_digests(summ) == summary_digests(
+        rsl.sweep_summaries(rcfg, rst, rgrid, slo_us=slo_us))
+    return st, summ
+
+
+def compare_sweep(policy, axes, product=True, **kw):
+    """Sweep both packages; assert every leaf and summary is equal."""
+    return compare_grid(axes, product, policy=policy, **kw)[0]
 
 
 @pytest.mark.parametrize("policy", ["fifo", "tas", "prop", "libasl"])
@@ -55,10 +71,12 @@ def test_sweep_matches_reference(policy):
 def test_policy_ids_and_axes_match_reference():
     ref_ids = rsl.POLICIES
     assert sl.POLICIES == {k: ref_ids[k] for k in
-                           ("fifo", "tas", "prop", "libasl")}
+                           ("fifo", "tas", "prop", "libasl", "edf", "shfl",
+                            "dvfs_race")}
+    assert set(ref_ids) - set(sl.POLICIES) == set(sl._LATER_POLICIES)
     assert set(sl.SWEEPABLE) <= set(rsl.SWEEPABLE)
-    assert set(sl.SWEEPABLE) | set(sl._LATER_AXES) | \
-        set(rsl.table_axes()) == set(rsl.SWEEPABLE)
+    assert set(sl.SWEEPABLE) | set(sl._LATER_AXES) == set(rsl.SWEEPABLE)
+    assert set(sl.table_axes()) == set(rsl.table_axes())
     assert list(sl.SimState._fields) == list(rsl.SimState._fields)
     assert list(sl.SimParams._fields) == list(rsl.SimParams._fields)
     assert list(sl.SimTables._fields) == list(rsl.SimTables._fields)
@@ -80,16 +98,16 @@ def test_default_device_needs_cuda(monkeypatch):
 @pytest.mark.parametrize("kw, feature", [
     (dict(wl=True), "wl"),
     (dict(wl_open=True), "wl_open"),
-    (dict(long_epoch_prob=0.1), "long_epoch_prob"),
-    (dict(wakeup_us=2.0), "wakeup_us"),
+    (dict(wl=True, wl_service="lognormal", long_epoch_prob=0.1), "wl"),
+    (dict(hist=True, wakeup_us=2.0), "hist"),
     (dict(preempt_rate=0.1), "preempt_rate"),
     (dict(churn_rate=0.1), "churn_rate"),
     (dict(straggle_rate=0.1), "straggle_rate"),
     (dict(n_keys=16), "n_keys"),
     (dict(hist=True), "hist"),
-    (dict(p_cs=(1.0,)), "power tables"),
-    (dict(policy_set=("fifo", "tas")), "policy_set"),
-    (dict(policy="edf"), "edf"),
+    (dict(preempt_rate=0.1, p_cs=(1.0,)), "preempt_rate"),
+    (dict(policy_set=("fifo", "ks_jbsq")), "ks_jbsq"),
+    (dict(policy="ks_erew"), "ks_erew"),
     (dict(policy="ks_crew"), "ks_crew"),
 ])
 def test_unsupported_features_raise(kw, feature):
@@ -98,12 +116,12 @@ def test_unsupported_features_raise(kw, feature):
 
 
 @pytest.mark.parametrize("axis, values", [
-    ("policy", ["fifo", "tas"]),
-    ("long_epoch_prob", [0.1]),
+    ("policy", ["fifo", "ks_erew"]),
+    ("preempt_rate", [0.1]),
     ("arrival_rate", [0.5]),
     ("n_keys", [4]),
-    ("seg_cs_us", [(3.0,)]),
-    ("slo_scale", [(1.0,) * 8]),
+    ("zipf_theta", [0.5]),
+    ("straggle_scale", [2.0]),
 ])
 def test_unsupported_axes_raise(axis, values):
     with pytest.raises(NotImplementedError, match=axis):

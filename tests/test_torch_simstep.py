@@ -23,13 +23,17 @@ BENCH1 = dict(seg_noncrit_us=(1.0, 0.5, 0.5, 0.5),
               n_locks=2, inter_epoch_us=7.5)
 
 
-@functools.lru_cache(maxsize=None)
 def _ref_start(policy, program="fig1"):
-    """JAX tables, params and a state 256 events into a run, and the
-    jitted Pallas chunk (cached: each compile takes seconds)."""
-    kw = BENCH1 if program == "bench1" else {}
-    cfg = rsl.SimConfig(policy=policy, sim_time_us=gd.SIM_US,
-                        use_pallas=True, **kw)
+    return ref_start(policy=policy,
+                     **(BENCH1 if program == "bench1" else {}))
+
+
+@functools.lru_cache(maxsize=None)
+def ref_start(**kw):
+    """JAX tables, params and a state 256 events into a run of the config
+    ``kw``, and the jitted Pallas chunk (cached: each compile takes
+    seconds)."""
+    cfg = rsl.SimConfig(sim_time_us=gd.SIM_US, use_pallas=True, **kw)
     ccfg = rsl._canon(cfg)
     tb = rsl.build_tables(cfg)
     pm = rsl.build_params(cfg, gd.SLO_US, gd.SEED)
@@ -43,28 +47,33 @@ def _ref_start(policy, program="fig1"):
 
 def _assert_same(port_st, ref_st, ctx):
     got = sl.to_reference(port_st)
+    assert sorted(got.pol) == sorted(ref_st.pol), ctx
     for name, want in ref_st._asdict().items():
-        if name == "pol":
-            assert got.pol == {} and want == {}
-            continue
-        a = getattr(got, name)[0]
-        w = np.asarray(want)
-        assert a.dtype == w.dtype and a.shape == w.shape, (ctx, name)
-        assert a.tobytes() == w.tobytes(), (ctx, name)
+        pairs = ([(got.pol[k][0], want[k]) for k in want] if name == "pol"
+                 else [(getattr(got, name)[0], want)])
+        for a, w in pairs:
+            w = np.asarray(w)
+            assert a.dtype == w.dtype and a.shape == w.shape, (ctx, name)
+            assert a.tobytes() == w.tobytes(), (ctx, name)
 
 
-def check_against_pallas(policy, program):
-    cfg, tb, pm, st, chunk = _ref_start(policy, program)
+def check_config(**kw):
+    """128 events of the Pallas kernel and of the port's ``fused_chunk``
+    from the same mid-run state of the config ``kw``: every leaf."""
+    cfg, tb, pm, st, chunk = ref_start(**kw)
     want = chunk(tb, pm, st)
     ptb, ppm, pst = sl.from_reference(tb, pm, st, device="cpu")
     n0 = simstep.fused_chunk.launches
-    scfg = sl.SimConfig(policy=policy, sim_time_us=gd.SIM_US,
-                        **(BENCH1 if program == "bench1" else {}))
+    scfg = sl.SimConfig(sim_time_us=gd.SIM_US, **kw)
     out = simstep.fused_chunk(ptb, ppm, pst, 128, scfg)
     assert out is pst                      # updated in place
     assert simstep.fused_chunk.launches == n0   # CPU: no kernel launch
     assert int(pst.events[0]) == int(want.events) > 256
-    _assert_same(pst, want, f"{policy}/{program}")
+    _assert_same(pst, want, kw)
+
+
+def check_against_pallas(policy, program):
+    check_config(policy=policy, **(BENCH1 if program == "bench1" else {}))
 
 
 @pytest.mark.parametrize("policy", ["fifo", "tas", "prop", "libasl"])
