@@ -10,7 +10,8 @@ Phases, each of which fails the script (non-zero exit, no result line):
 1. Print the card (``nvidia-smi``) and build every CUDA kernel from
    ``src/repro_torch/kernels/csrc`` with ``nvcc`` (one process per
    source, all started together); ``fused_chunk`` must keep no stack
-   frame (``ptxas -v``).
+   frame in any instantiation (``ptxas -v``; each policy's and the
+   merged set's, deterministic and stochastic).
 2. Hold the ``fused_chunk`` kernel against its plain PyTorch version on
    the card, bit for bit in every state leaf: each of the seven policies
    on the fig1 and Bench-1 programs over a small grid; each again on the
@@ -40,6 +41,24 @@ Phases, each of which fails the script (non-zero exit, no result line):
    finite (with the energy keys where watts are modeled).  Each grid's
    wall time, events/s, launches, ms a launch on the card (profiler) and
    bound.
+3c. The paper's load, excess-tail and chaos figures (``paper_figs``'
+   ``loadlat_sweep``, 168 cells; ``openloop_loadlat``, 108;
+   ``excess_tail``, 18; ``chaos_collapse``, the seven ported policies x
+   5 preemption rates) through the kernel's stochastic instantiations.
+   First a cut of each (a few cells, 4,000 us; chaos on fifo and libasl)
+   and a features cut (the seven policies merged, MMPP, the four
+   service distributions, churn, straggling, preemption, histograms):
+   the kernel against the plain step on the card, every leaf, and the
+   kernel's final state equal to the JAX package's (``CUT_DIGESTS``).
+   A diurnal cut (fifo and libasl merged, 2,000 us; its sine at parity
+   level 3, so no JAX digest) is held to the plain step alone.
+   Then the full grids at full length through ``sweep``, with the
+   ``fused_chunk`` counter set to 0 just before and read just after,
+   each final state equal to the JAX package's (``FIGURE_DIGESTS``);
+   each grid's cells, events, wall time, events/s, launches, ms a launch
+   on the card and bound, and the figure's own columns (throughput and
+   epoch P99 a row; the excess of the histogram P99 / P999 over the SLO;
+   goodput and its SLO fraction).
 4. Hold the ``mlstm_scan`` kernel against its plain PyTorch version on
    the card: f32 and bf16 inputs, with and without a carry, S in {1, 7,
    15, 16, 17, 256} (the ring's 16-step chunks' edges), dh in {32, 192},
@@ -385,6 +404,193 @@ def bench1_phase2(b1, fifo_p99: float) -> tuple:
         "window0_us": [w0] * 5 + [1e5]}, 1e9, False)
 
 
+# benchmarks/paper_figs.py's load, excess-tail and chaos figures
+# (loadlat_sweep, openloop_loadlat, excess_tail, chaos_collapse) and
+# serving_bench.LOAD_FRACS, as the JAX package runs them.
+LOAD_FRACS = (0.2, 0.4, 0.6, 0.8, 0.9)
+LOADLAT_EV8MS = {
+    ("fifo", 0.2): 606, ("fifo", 0.4): 1134, ("fifo", 0.6): 1612,
+    ("fifo", 0.8): 1958, ("fifo", 0.9): 2094, ("fifo", 1.5): 2514,
+    ("fifo", 3.0): 2427,
+    ("tas", 0.2): 606, ("tas", 0.4): 1139, ("tas", 0.6): 1620,
+    ("tas", 0.8): 1988, ("tas", 0.9): 2158, ("tas", 1.5): 2786,
+    ("tas", 3.0): 3400,
+    ("prop", 0.2): 606, ("prop", 0.4): 1150, ("prop", 0.6): 1620,
+    ("prop", 0.8): 2013, ("prop", 0.9): 2200, ("prop", 1.5): 2938,
+    ("prop", 3.0): 3822,
+    ("libasl", 0.2): 615, ("libasl", 0.4): 1164, ("libasl", 0.6): 1677,
+    ("libasl", 0.8): 2047, ("libasl", 0.9): 2254, ("libasl", 1.5): 2956,
+    ("libasl", 3.0): 3257,
+}
+OPENLOOP_EV8MS = {
+    ("fifo", 0.2): 906, ("fifo", 0.4): 1734, ("fifo", 0.6): 2562,
+    ("fifo", 0.8): 3300, ("fifo", 0.9): 3690, ("fifo", 1.1): 3934,
+    ("shfl", 0.2): 906, ("shfl", 0.4): 1734, ("shfl", 0.6): 2562,
+    ("shfl", 0.8): 3300, ("shfl", 0.9): 3691, ("shfl", 1.1): 4288,
+    ("libasl", 0.2): 910, ("libasl", 0.4): 1761, ("libasl", 0.6): 2644,
+    ("libasl", 0.8): 3479, ("libasl", 0.9): 3991, ("libasl", 1.1): 4443,
+}
+LOAD_SEEDS = 6                    # LOADLAT_SEEDS and OPENLOOP_SEEDS
+CHAOS_RATES = (0.0, 0.02, 0.05, 0.1, 0.2)
+LOAD_SLO = {"loadlat": 200.0, "openloop": 300.0, "excess": 200.0,
+            "chaos": 300.0}
+CUT_US = 4000.0                   # the load grids' cut for kernel == plain
+FEATURE_CUT_US = 1000.0           # the features cut's (7 merged policies)
+DIURNAL_CUT_US = 2000.0           # the diurnal cut's
+
+
+def loadlat_rate(frac: float) -> float:
+    """``paper_figs._loadlat_rate``: the wl_rate that offers ``frac`` of
+    the lock's capacity, by bisecting U(r) = sum_c cs_c / (cs_c +
+    think_c / r) on the fig1 calibration."""
+    cs = [3.0 * (1.0 if b else CS_RATIO) for b in BIG]
+    think = [6.0 * (1.0 if b else NC_RATIO) for b in BIG]
+    lo, hi = 1e-4, 1e4
+    for _ in range(80):
+        mid = (lo * hi) ** 0.5
+        if sum(c / (c + th / mid) for c, th in zip(cs, think)) < frac:
+            lo = mid
+        else:
+            hi = mid
+    return float((lo * hi) ** 0.5)
+
+
+def openloop_rate(frac: float) -> float:
+    """``paper_figs._openloop_rate``: core c offers rate / base_c arrivals
+    a microsecond (base = its closed-loop think budget), each holding the
+    lock for its CS time."""
+    cs = [3.0 * (1.0 if b else CS_RATIO) for b in BIG]
+    base = [6.0 * (1.0 if b else NC_RATIO) for b in BIG]
+    return frac / sum(c / b for c, b in zip(cs, base))
+
+
+def load_grids(sl) -> list:
+    """The load figures' grids as (name, cfg, axes, slo_us, product), for
+    either package's ``simlock``, in run order: ``loadlat_sweep`` and
+    ``openloop_loadlat`` (merged sets, 6 seed replicas a cell, horizons
+    stretched by the event tables), ``excess_tail`` (histograms on) and
+    ``chaos_collapse`` (one grid per policy, as the figure sweeps)."""
+    wl = dict(wl=True, wl_process="poisson", wl_service="lognormal",
+              wl_cv=1.0)
+    grids = []
+    fracs = LOAD_FRACS + (1.5, 3.0)
+    cfg = fig_cfg(sl, "fifo", sim_time_us=80_000.0,
+                  policy_set=("fifo", "tas", "prop", "libasl"), **wl)
+    emax = max(LOADLAT_EV8MS.values())
+    axes = {k: [] for k in ("policy", "arrival_rate", "w_big", "slo_us",
+                            "seed", "sim_time_us")}
+    for pol, w_big, slo in (("fifo", 1.0, 1e9), ("tas", 8.0, 1e9),
+                            ("prop", 1.0, 1e9),
+                            ("libasl", 1.0, LOAD_SLO["loadlat"])):
+        for f in fracs:
+            for seed in range(LOAD_SEEDS):
+                for k, v in zip(axes, (pol, loadlat_rate(f), w_big, slo, seed,
+                                       cfg.sim_time_us * emax
+                                       / LOADLAT_EV8MS[pol, f])):
+                    axes[k].append(v)
+    grids.append(("loadlat_sweep", cfg, axes, 1e9, False))
+    fracs = LOAD_FRACS + (1.1,)
+    cfg = fig_cfg(sl, "fifo", sim_time_us=60_000.0, wl_open=True,
+                  policy_set=("fifo", "shfl", "libasl"), **wl)
+    emax = max(OPENLOOP_EV8MS.values())
+    axes = {k: [] for k in ("policy", "arrival_rate", "slo_us", "seed",
+                            "sim_time_us")}
+    for pol, slo in (("fifo", 1e9), ("shfl", 1e9),
+                     ("libasl", LOAD_SLO["openloop"])):
+        for f in fracs:
+            for seed in range(LOAD_SEEDS):
+                for k, v in zip(axes, (pol, openloop_rate(f), slo, seed,
+                                       cfg.sim_time_us * emax
+                                       / OPENLOOP_EV8MS[pol, f])):
+                    axes[k].append(v)
+    grids.append(("openloop_loadlat", cfg, axes, 1e9, False))
+    cfg = fig_cfg(sl, "fifo", sim_time_us=40_000.0, hist=True,
+                  policy_set=("fifo", "tas", "libasl"), **wl)
+    axes = {k: [] for k in ("policy", "arrival_rate", "w_big", "slo_us")}
+    for pol, w_big, slo in (("fifo", 1.0, 1e9), ("tas", 8.0, 1e9),
+                            ("libasl", 1.0, LOAD_SLO["excess"])):
+        for f in LOAD_FRACS + (1.5,):
+            for k, v in zip(axes, (pol, loadlat_rate(f), w_big, slo)):
+                axes[k].append(v)
+    grids.append(("excess_tail", cfg, axes, 1e9, False))
+    for pol in POLICIES:
+        cfg = fig_cfg(sl, pol, sim_time_us=60_000.0, preempt_scale_us=50.0,
+                      fault_mask=tuple(0.0 if b else 1.0 for b in BIG),
+                      **FIG1_KW.get(pol, {}))
+        grids.append((f"chaos {pol}", cfg,
+                      {"preempt_rate": list(CHAOS_RATES)},
+                      LOAD_SLO["chaos"], True))
+    return grids
+
+
+def load_cuts(sl, grids) -> list:
+    """The cuts phase 3c holds the kernel to the plain step on: each load
+    figure's (chaos_collapse's on fifo and libasl) and the features'."""
+    return [cut_grid(g) for g in grids if not g[0].startswith("chaos")
+            or g[0] in ("chaos fifo", "chaos libasl")] + [feature_cut(sl)]
+
+
+def cut_grid(grid: tuple) -> tuple:
+    """A load grid cut for the kernel against the plain step: a few of
+    its cells (each policy at a light and at its heaviest load, or a
+    chaos grid's lightest and heaviest preemption), 4,000 us each."""
+    name, cfg, axes, slo, product = grid
+    import dataclasses
+    cfg = dataclasses.replace(cfg, sim_time_us=CUT_US)
+    if name.startswith("chaos"):
+        return (f"{name} cut", cfg, {"preempt_rate": [0.0, 0.2]}, slo, True)
+    n = len(axes["policy"])
+    per = n // len(cfg.policy_set)
+    step = LOAD_SEEDS if "seed" in axes else 1
+    keep = [p * per + i for p in range(len(cfg.policy_set))
+            for i in (step, per - 1)]
+    cut = {k: [v[i] for i in keep] for k, v in axes.items()
+           if k != "sim_time_us"}
+    return (f"{name} cut", cfg, cut, slo, False)
+
+
+def feature_cut(sl) -> tuple:
+    """The stochastic features the load figures leave out, as one cut
+    grid (1,000 us: the plain step runs all seven policies' hooks a
+    step): the seven policies merged, MMPP arrivals, the four service
+    distributions side by side (the per-core column), churn, straggling
+    and preemption on the little cores, and the histograms."""
+    cfg = fig_cfg(sl, "fifo", sim_time_us=FEATURE_CUT_US, wl=True,
+                  wl_process="mmpp", wl_burst=4.0, wl_burst_len=4.0,
+                  wl_service_per_core=("det", "exp", "lognormal",
+                                       "bimodal") * 2,
+                  wl_mix=0.2, wl_mix_scale=8.0, hist=True, hist_warmup=8,
+                  churn_rate=0.1, churn_period_us=200.0, straggle_rate=0.05,
+                  preempt_rate=0.05,
+                  fault_mask=tuple(0.0 if b else 1.0 for b in BIG))
+    axes = {"policy": list(POLICIES),
+            "arrival_rate": [loadlat_rate(f) for f in (
+                0.2, 0.6, 0.9, 1.5, 3.0, 0.4, 0.8)],
+            "seed": list(range(7))}
+    return ("features cut", cfg, axes, LOAD_SLO["loadlat"], False)
+
+
+def diurnal_cut(sl) -> tuple:
+    """The diurnal arrival ramp, closed loop, as one cut grid (2,000 us):
+    fifo and libasl merged, amplitude 0.8 over a 1,000 us period,
+    lognormal service, each policy at loads 1.5 and 3.0, with
+    long epochs and the wakeup on (the think draw times the long-epoch
+    draw, which no other cut reaches).  Its sine is at parity level 3
+    against the JAX package (libm's ``sinf`` there), so no JAX digest
+    holds it: the card holds the kernel to the plain step, and the CPU
+    tests hold the plain step to JAX at summary level."""
+    cfg = fig_cfg(sl, "fifo", sim_time_us=DIURNAL_CUT_US, wl=True,
+                  wl_process="diurnal", wl_amp=0.8, wl_period_us=1000.0,
+                  wl_service="lognormal", wl_cv=1.0, long_epoch_prob=0.3,
+                  long_epoch_scale=10.0, wakeup_us=2.0,
+                  policy_set=("fifo", "libasl"))
+    axes = {"policy": ["fifo", "fifo", "libasl", "libasl"],
+            "arrival_rate": [loadlat_rate(f) for f in (1.5, 3.0) * 2],
+            "slo_us": [1e9, 1e9, LOAD_SLO["loadlat"], LOAD_SLO["loadlat"]],
+            "seed": [0, 1, 2, 3]}
+    return ("diurnal cut", cfg, axes, LOAD_SLO["loadlat"], False)
+
+
 def full_digest(st) -> str:
     """sha256 over every leaf of a numpy state (reference dtypes), the
     pol slots included, in field order."""
@@ -399,7 +605,9 @@ def full_digest(st) -> str:
 
 
 # full_digest of the JAX package's final state of each figure grid.
-# tests/test_torch_simstep_figs.py recomputes them with JAX.
+# tests/test_torch_simstep_figs.py recomputes them with JAX, but for the
+# load grids (loadlat_sweep ... chaos dvfs_race), recorded once from the
+# JAX package: 10 grids, 10.4M events, about 80 s on a CPU.
 FIGURE_DIGESTS = {
     "bench1 merged, phase 1":
         "51eea560a1233c20002c568c3322769f1cdb5a8a1a2307de9959c46006126bd7",
@@ -439,6 +647,43 @@ FIGURE_DIGESTS = {
         "f5e94de6c0c368f443a55254639570b20ce1a5160bcd30255f1242fd0739757e",
     "energy dvfs_race":
         "983846f798c5ff9b931887dadafb55603d1ba1b56358dda886fa01d33877ff2b",
+    "loadlat_sweep":
+        "5e61b5fc7073c44bc4ea46564cd6d9f70121b18768e26c15f74d0142735412b2",
+    "openloop_loadlat":
+        "c3c729423be0ec4583189e500dd9fd824a96b97b67b9f14ffa36b10be6a480cd",
+    "excess_tail":
+        "ce1e69012d2c4def4aee750d8c79c18d16b1c0d4d6809c76f0565e7af5df53e9",
+    "chaos fifo":
+        "0595bfc603163adb47ba0187a4c77ec4775168adc80b3a921e6630c3298665cc",
+    "chaos tas":
+        "fc2f35ab99d34aeae6ea80e9b18ec968a2f5db03393ada4756f35cba4171f85a",
+    "chaos prop":
+        "b2751b12cd4c418dd94ce25c5bec2259b624750eacf185f0dfc07de6c7d55250",
+    "chaos libasl":
+        "60ba773e3a3158dd87b9415018afece0bf999c52641d72b7530cfac230740c8a",
+    "chaos edf":
+        "f1d2345952bd7c29daacdbc81b7fef6b8bfaaddb96636e864eecafc847287bd2",
+    "chaos shfl":
+        "6d58c6b11c680199988565c5e86b6e700633562b55c961a905ea77c1ab9114b5",
+    "chaos dvfs_race":
+        "69e689ba0c135a89592f3240e9fd65988064b1809b5cca5c417e852efbfaf32d",
+}
+# full_digest of the JAX package's final state of each load grid's cut
+# (cut_grid) and of FEATURE_CUT.  tests/test_torch_figure_digests_load.py
+# recomputes them with JAX.
+CUT_DIGESTS = {
+    "loadlat_sweep cut":
+        "5cb019040e659dd31b73f09f48eef5eb0867b946073d6d3af85b3f20610c6563",
+    "openloop_loadlat cut":
+        "959c20c232ab3057daeee28af7ccaeb00469e2fa830f3435f46a8563d59afcce",
+    "excess_tail cut":
+        "234baa68bbc2c0a2798a2b61f8dea1276ec768e4e43df19c477e4b6c437d2bc0",
+    "chaos fifo cut":
+        "bc92a299cc5a9aeff00c785072373566e0013a17869fc998cc26016047ee34a1",
+    "chaos libasl cut":
+        "278ae00bc5b90087f3cf49f0944178504c0427bc53765192dc167af65199ff4d",
+    "features cut":
+        "ad8fc2d9ee4120d6a99a5ebad69476f050ca2a6125e9222f04bdfee44bf90598",
 }
 
 
@@ -474,6 +719,7 @@ def instantiation(line: str) -> str:
     if not m:
         return ""
     args = (m.group(2) or "").replace("13__nv_bfloat16", "bf16,").replace(
+        "Lb1", "stochastic").replace("Lb0", "det").replace(
         "Li", "").replace("E", ",")
     args = re.sub(r"^f", "f32,", args)
     return m.group(1) + "(" + ", ".join(a for a in args.split(",") if a) \
@@ -614,13 +860,14 @@ def cuda_ms(fn) -> float:
 def launch_bound(tb, pm, cfg, simstep, before, after, launches) -> tuple:
     """Least time for one launch on this run's data (``launches`` of them
     took ``before`` to ``after``): in each launch every cell that retires
-    an event reads the kernel's tables, params and state (rings excepted)
-    once and writes its state once, and each recorded latency writes one
-    4-byte ring sample.  The operations (argmin compares and handler
+    an event reads the kernel's tables, params and state (rings and
+    histograms excepted) once and writes its state once, each recorded
+    latency writes one 4-byte ring sample and each histogram sample reads
+    and writes one 4-byte count.  The operations (argmin compares and handler
     steps per event) take far less time than the bytes."""
     ts, _ = simstep._operands(tb, pm, before, cfg)
     state = set(before._fields) | {"shfl_ctr", "race_ctr"}
-    skip = {"ep_lat", "cs_lat"}
+    skip = {"ep_lat", "cs_lat", "ep_hist", "cs_hist"}
     if not (cfg.p_cs or cfg.p_spin or cfg.p_park or cfg.p_idle):
         skip |= {"energy", "p_cs", "p_spin", "p_park", "p_idle"}
     if not cfg.long_epoch_prob > 0.0:
@@ -630,7 +877,11 @@ def launch_bound(tb, pm, cfg, simstep, before, after, launches) -> tuple:
     ev = after.events - before.events
     samples = int((after.ep_cnt - before.ep_cnt).sum()
                   + (after.cs_cnt - before.cs_cnt).sum())
-    n_bytes = int((ev > 0).sum()) * per_cell + 4 * samples / launches
+    # A histogram sample reads and writes one 4-byte count.
+    counts = int(sum((a.long() - b.long()).sum() for a, b in (
+        (after.ep_hist, before.ep_hist), (after.cs_hist, before.cs_hist))))
+    n_bytes = int((ev > 0).sum()) * per_cell + (
+        4 * samples + 8 * counts) / launches
     ops = int(ev.sum()) * (2 * before.t_ready.shape[1] + 64) / launches
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / FP32_OPS_PER_S * 1e3
@@ -821,7 +1072,8 @@ def figure_run(sl, simstep, name, cfg, axes, slo_us, product) -> tuple:
            "simulate_ms": (t2 - t1) * 1e3, "events_per_s": ev.sum() / wall,
            "launches": n, "card_ms": card, "ms": card / n,
            "bound_ms": bound, "bound_by": by,
-           "instantiation": "merged" if cfg.policy_set else cfg.policy}
+           "instantiation": ("merged" if cfg.policy_set else cfg.policy)
+           + (" stochastic" if simstep.stochastic(cfg) else "")}
     same = got == FIGURE_DIGESTS.get(name)
     print(f"figure {name}: {row['cells']} cells, {row['events']} events, "
           f"{wall:.3f} s ({row['init_sweep_ms']:.1f} ms init_sweep, "
@@ -874,6 +1126,101 @@ def phase_figures(sl, simstep) -> dict:
     if launches <= 0 or launches != sum(r["launches"] for r in
                                         rows.values()):
         raise AssertionError("the figure grids' launches do not add up")
+    return {"launches": launches, "grids": rows}
+
+
+def cut_run(sl, simstep, cut, level3=False) -> None:
+    """A load grid's cut (:func:`cut_grid`, :func:`feature_cut`) through
+    the kernel and through the plain step on the card: every leaf equal,
+    and the kernel's final state equal to the JAX package's
+    (``CUT_DIGESTS``); a ``level3`` cut (:func:`diurnal_cut`) has no
+    JAX digest and is held to the plain step alone."""
+    name, cfg, axes, slo, product = cut
+    cfg = sl.sweep_config(cfg, axes)
+    tb, pm, st, _ = sl.init_sweep(cfg, axes, slo_us=slo, product=product,
+                                  device="cuda")
+    ref = clone(st)
+    kernel_ms = cuda_ms(lambda: sl.simulate(cfg, tb, pm, st))
+    plain_ms = cuda_ms(lambda: sl.simulate(
+        cfg, tb, pm, ref, chunk_fn=simstep.fused_chunk_ref))
+    bad, _ = leaf_diff(st, ref)
+    got = full_digest(sl.to_reference(st))
+    same = level3 or got == CUT_DIGESTS[name]
+    print(f"load {name}: {st.events.numel()} cells, {int(st.events.sum())} "
+          f"events, kernel {kernel_ms / 1e3:.3f} s, plain {plain_ms / 1e3:.1f}"
+          f" s, differing leaves: {bad or 'none'}; " + (
+              f"parity level 3, no JAX digest (sha256 {got[:16]})" if level3
+              else f"{'bit-identical to' if same else 'DIFFERS from'} the "
+              f"JAX reference (sha256 {got[:16]})"), flush=True)
+    if bad or not same:
+        raise AssertionError(f"load {name}: kernel != plain or != JAX")
+
+
+def load_columns(name, summ) -> list:
+    """The figure's own columns of a load grid's summaries, one line per
+    row of the figure: throughput and epoch P99 (the seed replicas'
+    mean, as ``paper_figs._seed_mean`` folds them), the excess over the
+    SLO of the histogram P99 / P999 (``excess_tail``), goodput and its
+    SLO fraction (``chaos_collapse``)."""
+    import numpy as np
+    rows = {}
+    for s in summ:
+        if name.startswith("chaos"):
+            key = f"pr{float(s['preempt_rate']):g}"
+        else:
+            key = f"{s['policy']}/r{float(s['arrival_rate']):.4f}"
+        rows.setdefault(key, []).append(s)
+    lines = []
+    for key, grp in rows.items():
+        def mean(k):
+            v = np.asarray([g[k] for g in grp], float)
+            v = v[np.isfinite(v)]
+            return float(v.mean()) if v.size else float("nan")
+        line = (f"{name} {key}: throughput_cs_per_s "
+                f"{mean('throughput_cs_per_s'):.1f} ep_p99_all_us "
+                f"{mean('ep_p99_all_us'):.2f}")
+        if name == "excess_tail":
+            slo = LOAD_SLO["excess"]
+            p99, p999 = mean("ep_p99_hist_all_us"), mean("ep_p999_hist_all_us")
+            line += (f" ep_p99_hist_us {p99:.2f} ep_p999_hist_us {p999:.2f} "
+                     f"excess_p99 {max(0.0, p99 / slo - 1.0):.4f} "
+                     f"excess_p999 {max(0.0, p999 / slo - 1.0):.4f}")
+        if name.startswith("chaos"):
+            line += (f" goodput_eps {mean('goodput_eps'):.1f} "
+                     f"slo_good_frac {mean('slo_good_frac'):.4f}")
+        lines.append(line)
+    return lines
+
+
+def phase_load_figures(sl, simstep) -> dict:
+    """Phase 3c: the load, excess-tail and chaos figures.  First each
+    grid's cut, kernel against plain step on the card; then the full
+    grids through ``sweep``'s two parts, each held to the JAX package's
+    final state, with the ``fused_chunk`` counter set to 0 just before
+    and read just after."""
+    grids = load_grids(sl)
+    t0 = time.time()
+    for cut in load_cuts(sl, grids):
+        cut_run(sl, simstep, cut)
+    cut_run(sl, simstep, diurnal_cut(sl), level3=True)
+    print(f"load cuts: {time.time() - t0:.1f} s", flush=True)
+    simstep.fused_chunk.launches = 0
+    rows = {}
+    for name, cfg, axes, slo, product in grids:
+        rows[name], summ = figure_run(sl, simstep, name, cfg, axes, slo,
+                                      product)
+        for line in load_columns(name, summ):
+            print(f"  {line}", flush=True)
+    launches = simstep.fused_chunk.launches
+    total_ev = sum(r["events"] for r in rows.values())
+    total_s = sum(r["wall_s"] for r in rows.values())
+    print(f"load figures: {len(rows)} grids, "
+          f"{sum(r['cells'] for r in rows.values())} cells, {total_ev} "
+          f"events in {total_s:.3f} s ({total_ev / total_s:.0f} events/s), "
+          f"{launches} fused_chunk launches", flush=True)
+    if launches <= 0 or launches != sum(r["launches"] for r in
+                                        rows.values()):
+        raise AssertionError("the load grids' launches do not add up")
     return {"launches": launches, "grids": rows}
 
 
@@ -2811,6 +3158,7 @@ def main() -> int:
         shape = phase_main_shape(sl, simstep)
         main_run = phase_main(sl, simstep)
         figures = phase_figures(sl, simstep)
+        load = phase_load_figures(sl, simstep)
         mlstm = phase_mlstm(ms, build)
         serve_run = phase_serve(ms)
         phase_model(ms)
@@ -2949,11 +3297,12 @@ def main() -> int:
                 "init_sweep_ms", "simulate_ms", "card_ms", "outside_ms")})
             row["launches_by_path"] = {
                 "fig1 main path": main_run["launches"],
-                "figure grids": figures["launches"]}
+                "figure grids": figures["launches"],
+                "load figures": load["launches"]}
             row["figures"] = {k: {f: r[f] for f in (
                 "instantiation", "cells", "events", "launches", "wall_s",
                 "events_per_s", "ms", "bound_ms", "bound_by")}
-                for k, r in figures["grids"].items()}
+                for k, r in {**figures["grids"], **load["grids"]}.items()}
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

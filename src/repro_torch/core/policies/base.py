@@ -22,6 +22,7 @@ import functools
 
 import torch
 
+from repro_torch.faults import model as flt
 from repro_torch.workloads import generators as gen
 
 # Phases == event types (one pending event per core).
@@ -51,8 +52,12 @@ def rows(x: torch.Tensor) -> torch.Tensor:
 def put(x: torch.Tensor, idx: tuple, val, cond: torch.Tensor) -> None:
     """``x[rows, *idx] = val`` in the cells where ``cond`` holds."""
     key = (rows(x),) + idx
-    if not (isinstance(val, torch.Tensor) and val.dtype == x.dtype):
+    if isinstance(val, torch.Tensor):
+        if val.dtype != x.dtype:
+            val = val.to(x.dtype)
+    elif not (x.dtype.is_floating_point or isinstance(val, int)):
         val = torch.as_tensor(val, dtype=x.dtype, device=x.device)
+    # (a Python scalar goes to torch.where as it is: no copy to the card)
     x[key] = torch.where(cond, val, x[key])
 
 
@@ -121,25 +126,39 @@ def policy_opts(cfg) -> dict:
     return dict(cfg.policy_kw)
 
 
-def handoff_cost(cfg, pm):
-    """The wakeup a queue-pop handoff pays (``pm.wakeup``, ``[B]`` ticks)
-    when the config's wakeup gate is on, else None: a blocking lock's
-    parked waiter takes that long to run (Bench-6)."""
-    return pm.wakeup if cfg.wakeup_us > 0.0 else None
-
-
-def grant(st, tb, cond, c, t, wakeup=None) -> None:
+def grant(st, cfg, tb, pm, cond, c, t, wakeup: bool = False) -> None:
     """Make core ``c`` (where ``cond``) the holder of its lock and
-    schedule its release after its segment's critical section, plus
-    ``wakeup`` ticks where given (:func:`handoff_cost`: only queue-pop
+    schedule its release after its segment's critical section, in the
+    reference's order: scaled by the epoch's ``wl`` service draw (at least
+    one tick), plus a straggler spike and a preemption stall (drawn by the
+    core's critical-section count, the rates times its ``ft_mask``), plus
+    the wakeup where ``wakeup`` and the gate is on (only queue-pop
     handoffs pay it, never an acquire's grab, a spinner or a standby)."""
     r = rows(st.seg)
     c_safe = torch.clamp_min(c, 0)
     s = st.seg[r, c_safe].long()
     l = tb.seg_lock[r, s].long()
     dur = tb.cs_dur[r, c_safe, s]
-    if wakeup is not None:
-        dur = dur + wakeup
+    if cfg.wl or cfg.wl_open:
+        dur = torch.clamp_min(
+            (dur.to(torch.float32) * st.svc_scale[r, c_safe])
+            .to(torch.int32), 1)
+    if cfg.straggle_rate > 0.0 or cfg.preempt_rate > 0.0:
+        if not bool(cond.any()):        # commits nothing: skip the draws
+            return
+        gix = st.cs_cnt[r, c_safe]
+        eligible = tb.col["ft_mask"][r, c_safe]
+        n = st.phase.shape[1]
+    if cfg.straggle_rate > 0.0:
+        dur = dur + flt.straggle_extra(
+            pm.seed, c_safe, gix, dur, pm.straggle_rate * eligible,
+            pm.straggle_scale, n)
+    if cfg.preempt_rate > 0.0:
+        dur = dur + flt.preempt_extra(
+            pm.seed, c_safe, gix, pm.preempt_rate * eligible,
+            pm.preempt_scale, n)
+    if wakeup and cfg.wakeup_us > 0.0:
+        dur = dur + pm.wakeup
     put(st.holder, (l,), c_safe, cond)
     put(st.phase, (c_safe,), HOLDER, cond)
     put(st.t_ready, (c_safe,), t + dur, cond)
@@ -158,14 +177,14 @@ def waiting_mask(st, tb, l, phase=QUEUED) -> torch.Tensor:
     return (st.phase == phase) & (lock_vec(st, tb) == l[:, None])
 
 
-def queueless_acquire(st, tb, c, t, cond) -> None:
+def queueless_acquire(st, cfg, tb, pm, c, t, cond) -> None:
     """The queue-less acquire (edf, shfl, dvfs_race): grab when the lock
     is free and nobody waits on it, else park in QUEUED for the
     releaser's scan."""
     l = lock_of(st, tb, c)
     free = st.holder[rows(l), l] == -1
     can_grab = free & ~waiting_mask(st, tb, l).any(dim=1)
-    grant(st, tb, can_grab & cond, c, t)
+    grant(st, cfg, tb, pm, can_grab & cond, c, t)
     park(st, ~can_grab & cond, c, QUEUED)
 
 

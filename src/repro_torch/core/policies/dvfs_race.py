@@ -18,7 +18,7 @@ from repro_torch.core import energy as _energy  # noqa: F401  (dvfs column)
 from repro_torch.core.columns import ColumnSpec, register_column
 from repro_torch.core.policies import register
 from repro_torch.core.policies.base import (INF, LockPolicy, grant,
-                                            handoff_cost, policy_opts,
+                                            policy_opts,
                                             queueless_acquire, rows,
                                             waiting_mask)
 
@@ -53,7 +53,7 @@ class DvfsRacePolicy(LockPolicy):
                                         device=device)}
 
     def on_acquire(self, st, cfg, tb, pm, c, t, cond):
-        queueless_acquire(st, tb, c, t, cond)
+        queueless_acquire(st, cfg, tb, pm, c, t, cond)
 
     def pick_next(self, st, cfg, tb, pm, l, t, cond):
         waiting = waiting_mask(st, tb, l)
@@ -68,4 +68,4 @@ class DvfsRacePolicy(LockPolicy):
         has = waiting.any(dim=1) & cond
         ctrs[r, l] = torch.where(has, torch.where(pick != head, ctr + 1, 0),
                                  ctr)
-        grant(st, tb, has, pick, t, wakeup=handoff_cost(cfg, pm))
+        grant(st, cfg, tb, pm, has, pick, t, wakeup=True)

@@ -14,7 +14,7 @@ import torch
 
 from repro_torch.core.policies import register
 from repro_torch.core.policies.base import (INF, LockPolicy, grant,
-                                            handoff_cost, queueless_acquire,
+                                            queueless_acquire,
                                             ticks, waiting_mask)
 
 
@@ -25,16 +25,15 @@ class EdfPolicy(LockPolicy):
     table_slots = ("col.slo_scale",)
 
     def on_acquire(self, st, cfg, tb, pm, c, t, cond):
-        queueless_acquire(st, tb, c, t, cond)
+        queueless_acquire(st, cfg, tb, pm, c, t, cond)
 
     def pick_next(self, st, cfg, tb, pm, l, t, cond):
         waiting = waiting_mask(st, tb, l)
-        cap = torch.tensor(float(ticks(cfg.max_window_us)),
-                           dtype=torch.float32, device=l.device)
-        slo_t = torch.minimum(pm.slo[:, None] * tb.col["slo_scale"],
-                              cap).to(torch.int32)
+        slo_t = torch.clamp_max(pm.slo[:, None] * tb.col["slo_scale"],
+                                float(ticks(cfg.max_window_us))
+                                ).to(torch.int32)
         dl = torch.where(waiting, st.epoch_start + slo_t, INF)
         tie = waiting & (dl == dl.amin(dim=1, keepdim=True))
         pick = torch.argmin(torch.where(tie, st.attempt_t, INF), dim=1)
         has = waiting.any(dim=1) & cond
-        grant(st, tb, has, pick, t, wakeup=handoff_cost(cfg, pm))
+        grant(st, cfg, tb, pm, has, pick, t, wakeup=True)

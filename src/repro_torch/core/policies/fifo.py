@@ -4,7 +4,7 @@ from __future__ import annotations
 
 from repro_torch.core.policies import register
 from repro_torch.core.policies.base import (LockPolicy, QUEUED, deq, enq,
-                                            grant, handoff_cost, lock_of,
+                                            grant, lock_of,
                                             park, qlen, rows)
 
 
@@ -18,11 +18,11 @@ class FifoPolicy(LockPolicy):
         l = lock_of(st, tb, c)
         can_grab = (st.holder[rows(l), l] == -1) & (qlen(st, l, 0) == 0)
         wait = ~can_grab & cond
-        grant(st, tb, can_grab & cond, c, t)
+        grant(st, cfg, tb, pm, can_grab & cond, c, t)
         enq(st, wait, l, 0, c)
         park(st, wait, c, QUEUED)
 
     def pick_next(self, st, cfg, tb, pm, l, t, cond):
         nonempty = (qlen(st, l, 0) > 0) & cond
         cq = deq(st, nonempty, l, 0)
-        grant(st, tb, nonempty, cq, t, wakeup=handoff_cost(cfg, pm))
+        grant(st, cfg, tb, pm, nonempty, cq, t, wakeup=True)

@@ -9,7 +9,7 @@ from repro_torch.core.aimd import aimd_update
 from repro_torch.core.policies import register
 from repro_torch.core.policies.base import (LockPolicy, QUEUED, STANDBY,
                                             advance_key, deq, enq, grant,
-                                            handoff_cost, lock_of, lock_vec,
+                                            lock_of, lock_vec,
                                             park, put, qlen, rows, ticks,
                                             weighted_pick)
 
@@ -31,11 +31,11 @@ class LibASLPolicy(LockPolicy):
         wait = ~can_grab & cond
         enq_c = wait & is_big          # big: lock immediately (FIFO)
         standby = wait & ~is_big       # little: stand by for the window
-        grant(st, tb, can_grab & cond, c, t)
+        grant(st, cfg, tb, pm, can_grab & cond, c, t)
         enq(st, enq_c, l, 0, c)
-        cap = torch.tensor(float(ticks(cfg.max_window_us)),
-                           dtype=torch.float32, device=c.device)
-        win = torch.minimum(st.window[r, c], cap).to(torch.int32)
+        win = torch.clamp_max(st.window[r, c],
+                              float(ticks(cfg.max_window_us))
+                              ).to(torch.int32)
         park(st, enq_c, c, QUEUED)
         put(st.phase, (c,), STANDBY, standby)
         put(st.t_ready, (c,), t + torch.clamp_min(win, 0), standby)
@@ -45,7 +45,7 @@ class LibASLPolicy(LockPolicy):
         l = lock_of(st, tb, c)
         free = (st.holder[rows(l), l] == -1) & (qlen(st, l, 0) == 0)
         wait = ~free & cond
-        grant(st, tb, free & cond, c, t)
+        grant(st, cfg, tb, pm, free & cond, c, t)
         enq(st, wait, l, 0, c)
         park(st, wait, c, QUEUED)
 
@@ -64,10 +64,10 @@ class LibASLPolicy(LockPolicy):
         # FIFO queue first.
         nonempty = (qlen(st, l, 0) > 0) & cond
         cq = deq(st, nonempty, l, 0)
-        grant(st, tb, nonempty, cq, t, wakeup=handoff_cost(cfg, pm))
+        grant(st, cfg, tb, pm, nonempty, cq, t, wakeup=True)
         # Queue empty -> a standby competitor may grab the free lock.  The
         # key advances on every release, even when the queue served.
         standby = (st.phase == STANDBY) & (lock_vec(st, tb) == l[:, None])
         sub = advance_key(st, cond)
         pick, any_standby = weighted_pick(sub, standby.to(torch.float32))
-        grant(st, tb, ~nonempty & any_standby & cond, pick, t)
+        grant(st, cfg, tb, pm, ~nonempty & any_standby & cond, pick, t)

@@ -7,7 +7,7 @@ import torch
 
 from repro_torch.core.policies import register
 from repro_torch.core.policies.base import (LockPolicy, QUEUED, deq, enq,
-                                            grant, handoff_cost, lock_of,
+                                            grant, lock_of,
                                             park, qlen, rows)
 
 
@@ -25,7 +25,7 @@ class PropPolicy(LockPolicy):
         can_grab = ((st.holder[r, l] == -1) & (qlen(st, l, 0) == 0)
                     & (qlen(st, l, 1) == 0))
         wait = ~can_grab & cond
-        grant(st, tb, can_grab & cond, c, t)
+        grant(st, cfg, tb, pm, can_grab & cond, c, t)
         b = torch.where(tb.big[r, c] == 1, 0, 1).long()
         enq(st, wait, l, b, c)
         park(st, wait, c, QUEUED)
@@ -40,6 +40,6 @@ class PropPolicy(LockPolicy):
         cl = deq(st, take_little, l, 1)
         st.prop_ctr[r, l] = torch.where(
             take_big, ctr + 1, torch.where(take_little, 0, ctr))
-        grant(st, tb, take_big | take_little,
+        grant(st, cfg, tb, pm, take_big | take_little,
               torch.where(take_big, cb, cl), t,
-              wakeup=handoff_cost(cfg, pm))
+              wakeup=True)

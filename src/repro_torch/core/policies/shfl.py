@@ -13,7 +13,7 @@ import torch
 
 from repro_torch.core.policies import register
 from repro_torch.core.policies.base import (INF, LockPolicy, grant,
-                                            handoff_cost, policy_opts,
+                                            policy_opts,
                                             queueless_acquire, rows,
                                             waiting_mask)
 
@@ -37,7 +37,7 @@ class ShflPolicy(LockPolicy):
                                         device=device)}
 
     def on_acquire(self, st, cfg, tb, pm, c, t, cond):
-        queueless_acquire(st, tb, c, t, cond)
+        queueless_acquire(st, cfg, tb, pm, c, t, cond)
 
     def pick_next(self, st, cfg, tb, pm, l, t, cond):
         waiting = waiting_mask(st, tb, l)
@@ -54,4 +54,4 @@ class ShflPolicy(LockPolicy):
         bypassed = shuffle & (pick != head)
         has = waiting.any(dim=1) & cond
         ctrs[r, l] = torch.where(has, torch.where(bypassed, ctr + 1, 0), ctr)
-        grant(st, tb, has, pick, t, wakeup=handoff_cost(cfg, pm))
+        grant(st, cfg, tb, pm, has, pick, t, wakeup=True)

@@ -25,7 +25,7 @@ class TasPolicy(LockPolicy):
     def on_acquire(self, st, cfg, tb, pm, c, t, cond):
         l = lock_of(st, tb, c)
         free = st.holder[rows(l), l] == -1
-        grant(st, tb, free & cond, c, t)
+        grant(st, cfg, tb, pm, free & cond, c, t)
         park(st, ~free & cond, c, SPIN)
 
     def pick_next(self, st, cfg, tb, pm, l, t, cond):
@@ -36,4 +36,4 @@ class TasPolicy(LockPolicy):
                         torch.ones_like(pm.w_big)[:, None])
         winner, any_spin = weighted_pick(
             sub, torch.where(spinning, w, torch.zeros_like(w)))
-        grant(st, tb, any_spin & cond, winner, t)
+        grant(st, cfg, tb, pm, any_spin & cond, winner, t)

@@ -1,5 +1,5 @@
 """Discrete-event AMP lock simulator — the PyTorch/CUDA port of
-``repro.core.simlock`` (closed-loop slice).
+``repro.core.simlock``.
 
 ``N`` cores with per-core speed factors run (non-critical section ->
 acquire -> critical section -> release) loops against ``L`` shared locks
@@ -9,6 +9,7 @@ the core at the head of the event clock selects the handler:
   NONCRIT end  -> acquire attempt (policy hook)
   STANDBY end  -> reorder window expired (policy hook; libasl only)
   HOLDER end   -> release: record latencies, advance epoch, pick next holder
+  ARRIVAL due  -> open loop (``wl_open``): the next request arrives
 QUEUED / SPIN cores carry ``t_ready = INF`` and are woken by the releaser.
 
 Every sweep cell is one row of a batch: ``SimTables``, ``SimParams`` and
@@ -19,15 +20,19 @@ in the hand-written kernel :func:`repro_torch.kernels.simstep.fused_chunk`
 (``chunk`` events per launch, launched until no cell is live); on the CPU
 the same wrapper runs :func:`_step`, the plain PyTorch version.
 
-Scope: the paper's closed-loop, fault-free, key-free experiments under
-the seven table policies (``fifo``, ``tas``, ``prop``, ``libasl``,
-``edf``, ``shfl``, ``dvfs_race``), merged policy sets (a ``policy``
-axis), program and column table axes, long epochs, the blocking-lock
-wakeup cost and the energy model.  Every ``SimState`` leaf is
+Scope: the paper's experiments without keyed traffic, under the seven
+table policies (``fifo``, ``tas``, ``prop``, ``libasl``, ``edf``,
+``shfl``, ``dvfs_race``): merged policy sets (a ``policy`` axis),
+program and column table axes, long epochs, the blocking-lock wakeup
+cost, the energy model, stochastic workloads closed and open loop
+(``wl``, ``wl_open``), streaming histograms (``hist``) and fault
+injection (holder preemption, core churn, straggler spikes).  The draws
+go through XLA's own f32 ``log1p`` / ``exp`` / ``erf_inv`` / ``log2``
+(:mod:`repro_torch.core.xla_math`), so every ``SimState`` leaf is
 bit-identical to the JAX package's for the same config
-(``tests/test_torch_simlock*.py``).  A config that needs a feature the
-port does not run yet (histograms, stochastic workloads, faults, keyed
-traffic) raises ``NotImplementedError`` naming it.  Entry points take ``device=None``,
+(``tests/test_torch_simlock*.py``); the diurnal ramp's ``sin`` alone may
+differ by an ulp.  Keyed traffic (``n_keys``) raises
+``NotImplementedError`` naming it.  Entry points take ``device=None``,
 which means the CUDA device; pass ``device="cpu"`` for the plain version.
 """
 
@@ -44,13 +49,16 @@ import torch
 from repro_torch.core import aimd, policies, stats
 from repro_torch.core import columns as colreg
 from repro_torch.core import energy as _energy
-from repro_torch.core.policies.base import (HOLDER, INF, NONCRIT, QUEUED,
-                                            SPIN, STANDBY, US, advance_key,
-                                            lock_of, put, rows, ticks)
+from repro_torch.core import xla_math as xm
+from repro_torch.core.policies.base import (ARRIVAL, HOLDER, INF, NONCRIT,
+                                            QUEUED, SPIN, STANDBY, US,
+                                            advance_key, lock_of, put, rows,
+                                            ticks)
+from repro_torch.faults import model as flt
 from repro_torch.workloads import ARRIVALS, SERVICES
+from repro_torch.workloads import generators as wlg
 from repro_torch.workloads import keys as wlk
 from repro_torch.workloads.generators import PRNGKey, uniform
-from repro_torch import faults as _faults  # noqa: F401  (ft_mask column)
 from repro_torch.device import resolve as _device
 
 POLICIES = policies.policy_ids()
@@ -174,22 +182,10 @@ def _validate_config(cfg) -> None:
 
 def _check_slice(cfg) -> None:
     """Name every feature of ``cfg`` that this port does not run yet."""
-    later = []
-    if cfg.wl:
-        later.append("wl (stochastic workloads)")
-    if cfg.wl_open:
-        later.append("wl_open (open-loop arrivals)")
-    for rate in ("preempt_rate", "churn_rate", "straggle_rate"):
-        if getattr(cfg, rate) > 0.0:
-            later.append(f"{rate} > 0 (fault injection)")
     if cfg.n_keys > 0:
-        later.append("n_keys > 0 (key-sharded traffic)")
-    if cfg.hist:
-        later.append("hist (streaming latency histograms)")
-    if later:
         raise NotImplementedError(
             "repro_torch does not run these SimConfig features yet: "
-            + "; ".join(later))
+            "n_keys > 0 (key-sharded traffic)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -281,6 +277,11 @@ def _active_policy(cfg: SimConfig):
     return policies.get(cfg.policy)
 
 
+def _wl_on(cfg: SimConfig) -> bool:
+    """The workload gate: per-epoch draws (``wl``; open loop implies it)."""
+    return bool(cfg.wl or cfg.wl_open)
+
+
 def _energy_on(cfg: SimConfig) -> bool:
     """The energy gate: is any per-core power table set?  (All-zero
     tables turn it on too and integrate exact zeros.)"""
@@ -348,8 +349,8 @@ _I32_PARAMS = ("pol_id", "prop_n", "n_active", "seed", "horizon", "wakeup",
 class SimState(NamedTuple):
     """The reference's leaves, in its order, each with a leading cell axis.
     ``key`` is int64 ``[B,2]`` holding two u32 words; ``ep_hist`` /
-    ``cs_hist`` are i32 ``[B,N,1]`` placeholders (u32 bits) while the
-    histogram gate is not ported."""
+    ``cs_hist`` hold u32 counts as i32, ``[B,N,hist_buckets]`` when the
+    histogram gate is on and ``[B,N,1]`` (all zero) when it is off."""
 
     t: torch.Tensor
     key: torch.Tensor
@@ -377,8 +378,8 @@ class SimState(NamedTuple):
     energy: torch.Tensor       # f32[B,N]
     cur_lock: torch.Tensor     # i32[B,N]
     cur_rw: torch.Tensor       # f32[B,N]
-    ep_hist: torch.Tensor      # i32[B,N,1]
-    cs_hist: torch.Tensor      # i32[B,N,1]
+    ep_hist: torch.Tensor      # i32[B,N,H] epoch-latency counts
+    cs_hist: torch.Tensor      # i32[B,N,H] acquire->release counts
     pol: dict
 
 
@@ -506,22 +507,61 @@ def _init_state(cfg: SimConfig, tb: SimTables, pm: SimParams,
     core = torch.arange(n, **i32)
     active = core[None, :] < pm.n_active[:, None]
     # Stagger initial arrivals slightly so ties don't all collapse to core 0.
-    ready0 = torch.where(active, tb.nc_dur[:, :, 0] + core[None, :],
-                         torch.tensor(INF, **i32))
+    stagger = core[None, :]
     zeros = torch.zeros((b, n), **i32)
+    inf = torch.tensor(INF, **i32)
+    think0 = scale0 = svc0 = torch.ones((b, n), **f32)   # cloned below
+    wl_on0 = zeros.clone()
+    nc0 = tb.nc_dur[:, :, 0]
+    if _wl_on(cfg):
+        # Epoch-0 workload draws, pure in (seed, core, 0).
+        def u0(stream):
+            keys = wlg.core_keys(pm.seed, stream, n)
+            return uniform(wlg.fold_in(keys, 0))
+
+        u_t, u_s, u_p = (u0(wlg.STREAM_THINK), u0(wlg.STREAM_SERVICE),
+                         u0(wlg.STREAM_PHASE))
+        z_s = wlg.normal_of_uniform(u0(wlg.STREAM_SERVICE ^ 0x40000))
+        wl_on0 = (u_p < 0.5).to(torch.int32)
+
+        def col(x):
+            return x[:, None]
+
+        think0 = wlg.think_gap(u_t, col(pm.wl_process), col(pm.wl_rate),
+                               wl_on0, col(pm.wl_burst),
+                               torch.zeros((b, n), **f32), col(pm.wl_amp))
+        svc0 = wlg.service_unit(u_s, z_s, _svc_dist(tb, pm),
+                                col(pm.wl_cv), col(pm.wl_mix),
+                                col(pm.wl_mix_scale))
+        if not cfg.wl_open:
+            scale0 = think0
+            nc0 = (nc0.to(torch.float32) * scale0).to(torch.int32)
+    if cfg.wl_open:
+        # Every core starts parked on its pending-ARRIVAL event; arrival 0
+        # is drawn from the think stream (gap base = the closed-loop
+        # think budget inter + noncrit).
+        base = (tb.inter + tb.nc_dur[:, :, 0]).to(torch.float32)
+        arr0 = torch.clamp_min((base * think0).to(torch.int32), 1) + stagger
+        phase0 = torch.full((b, n), ARRIVAL, **i32)
+        ready0 = torch.where(active, arr0, inf)
+    else:
+        arr0 = zeros.clone()
+        phase0 = zeros.clone()
+        ready0 = torch.where(active, nc0 + stagger, inf)
+    hb = cfg.hist_buckets if cfg.hist else 1
     return SimState(
         t=torch.zeros(b, **i32),
         key=PRNGKey(pm.seed),
-        phase=zeros.clone(),
+        phase=phase0,
         t_ready=ready0.contiguous(),
         seg=zeros.clone(),
         epoch_start=zeros.clone(),
         attempt_t=zeros.clone(),
         window=windows0.to(**f32).contiguous(),
         unit=pm.unit0[:, None].expand(b, n).contiguous(),
-        scale=torch.ones((b, n), **f32),
-        svc_scale=torch.ones((b, n), **f32),
-        wl_on=zeros.clone(),
+        scale=scale0.clone(),
+        svc_scale=svc0.clone(),
+        wl_on=wl_on0.contiguous(),
         q=torch.full((b, l, 2, n), -1, **i32),
         q_head=torch.zeros((b, l, 2), **i32),
         q_tail=torch.zeros((b, l, 2), **i32),
@@ -532,12 +572,12 @@ def _init_state(cfg: SimConfig, tb: SimTables, pm: SimParams,
         cs_lat=torch.zeros((b, n, cap), **f32),
         cs_cnt=zeros.clone(),
         events=torch.zeros(b, **i32),
-        arr_t=zeros.clone(),
+        arr_t=arr0.contiguous(),
         energy=torch.zeros((b, n), **f32),
         cur_lock=zeros.clone(),
         cur_rw=torch.ones((b, n), **f32),
-        ep_hist=torch.zeros((b, n, 1), **i32),
-        cs_hist=torch.zeros((b, n, 1), **i32),
+        ep_hist=torch.zeros((b, n, hb), **i32),
+        cs_hist=torch.zeros((b, n, hb), **i32),
         pol=_active_policy(cfg).init_state(cfg, b, dev))
 
 
@@ -546,9 +586,36 @@ def _init_state(cfg: SimConfig, tb: SimTables, pm: SimParams,
 # fully conditional: it commits nothing in a cell whose ``cond`` is false.
 # --------------------------------------------------------------------------
 
+def _svc_dist(tb, pm, c=None) -> torch.Tensor:
+    """The SERVICES id in effect: the per-core ``wl_service`` column where
+    set (multi-class tenants), else the cell's ``wl_service``; ``[B, N]``,
+    or ``[B]`` for core ``c``."""
+    if c is None:
+        per_core = tb.col["wl_service"]
+        return torch.where(per_core >= 0, per_core, pm.wl_service[:, None])
+    per_core = tb.col["wl_service"][rows(c), c]
+    return torch.where(per_core >= 0, per_core, pm.wl_service)
+
+
+def _phase01(pm, t) -> torch.Tensor:
+    """The diurnal cycle position of tick ``t``: ``mod(t / period, 1)``."""
+    return torch.fmod(t.to(torch.float32) / torch.clamp_min(pm.wl_period,
+                                                            1.0), 1.0)
+
+
 def _handle_acquire(st, cfg, tb, pm, c, t, cond) -> None:
     """A core's non-critical section ended: record the attempt time and
-    let the policy decide grab / queue / standby / spin."""
+    let the policy decide grab / queue / standby / spin.  Under core
+    churn, an attempt in an "off" slot bounces to the next slot boundary
+    instead (the policy never sees it)."""
+    if cfg.churn_rate > 0.0:
+        n = st.phase.shape[1]
+        off = flt.churn_off(pm.seed, c, t,
+                            pm.churn_rate * tb.col["ft_mask"][rows(c), c],
+                            pm.churn_period, n)
+        put(st.t_ready, (c,), flt.churn_rejoin(t, pm.churn_period),
+            cond & off)
+        cond = cond & ~off
     put(st.attempt_t, (c,), t, cond)
     _active_policy(cfg).on_acquire(st, cfg, tb, pm, c, t, cond)
 
@@ -561,20 +628,53 @@ def _record(buf, cnt, c, value, cond) -> None:
     cnt[r, c] = n + cond.to(torch.int32)
 
 
-def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor):
-    """``a * b + c`` in f32 with one rounding, as ``fmaf`` gives it.
+#: ``a * b + c`` in f32 with one rounding (:func:`xla_math.fma`).
+fma_f32 = xm.fma
 
-    The f64 product of two f32 values is exact; the f64 sum is rounded
-    to odd (its exact error, from TwoSum, decides the last bit), which
-    then rounds to f32 exactly as the one-step fused operation would."""
-    p = a.double() * b.double()
-    c = c.double()
-    s = p + c
-    bb = s - p
-    err = (p - (s - bb)) + (c - bb)
-    even = (s.view(torch.int64) & 1) == 0
-    odd = torch.nextafter(s, torch.where(err > 0, math.inf, -math.inf))
-    return torch.where((err != 0) & even, odd, s).float()
+
+def _hist_record(hist, tb, c, value, cond) -> None:
+    """One latency sample (ticks) into core ``c``'s log-bucketed histogram
+    row where ``cond``: ``1 + floor((log2(max(v, 1e-6)) - log2_lo) *
+    inv_log2g)``, clipped, with XLA's f32 log and the fused multiply-add
+    the compiled reference makes of ``log2(v) - log2_lo``."""
+    if not bool(cond.any()):            # commits nothing
+        return
+    r = rows(c)
+    lg = xm.fma(xm.log(torch.clamp_min(value, _HIST_FLOOR)), xm.LOG2_MUL,
+                -tb.hist_log2_lo) * tb.hist_inv_log2g
+    idx = torch.clamp(1 + torch.floor(lg).to(torch.int32), 0,
+                      hist.shape[2] - 1).long()
+    hist[r, c, idx] += cond.to(torch.int32)
+
+
+_HIST_FLOOR = float(np.float32(1e-6))
+# The streams an epoch's draws come from: service u and z, think, phase.
+_EPOCH_STREAMS = (wlg.STREAM_SERVICE, wlg.STREAM_SERVICE ^ 0x40000,
+                  wlg.STREAM_THINK, wlg.STREAM_PHASE)
+
+
+def _handle_arrival(st, cfg, tb, pm, c, t, cond) -> None:
+    """Open loop (``wl_open``): the pending-ARRIVAL event fired.  The epoch
+    begins at its true arrival time ``arr_t[c]`` (in the past when the
+    core is backlogged, so the epoch latency includes the queueing), and
+    the next arrival's gap is drawn (index: the arrivals so far + 1)."""
+    r = rows(c)
+    n = st.phase.shape[1]
+    a = st.arr_t[r, c]
+    u = wlg.event_uniforms(pm.seed, _EPOCH_STREAMS[2:], c,
+                           st.ep_cnt[r, c] + 1, n)
+    on = wlg.phase_flip(u[:, 1], st.wl_on[r, c], pm.wl_burst_len)
+    gap = wlg.think_gap(u[:, 0], pm.wl_process, pm.wl_rate, on, pm.wl_burst,
+                        _phase01(pm, t), pm.wl_amp)
+    base = (tb.inter[r, c] + tb.nc_dur[r, c, 0]).to(torch.float32)
+    nxt = a + torch.clamp_min((base * gap).to(torch.int32), 1)
+    nc0 = (tb.nc_dur[r, c, 0].to(torch.float32) * st.scale[r, c]) \
+        .to(torch.int32)
+    put(st.arr_t, (c,), nxt, cond)
+    put(st.wl_on, (c,), on, cond)
+    put(st.epoch_start, (c,), a, cond)
+    put(st.phase, (c,), NONCRIT, cond)
+    put(st.t_ready, (c,), t + nc0, cond)
 
 
 def _power_draw(tb, pm, st) -> torch.Tensor:
@@ -600,21 +700,53 @@ def _handle_release(st, cfg, tb, pm, c, t, cond) -> None:
     l = lock_of(st, tb, c)
     n_seg = len(cfg.seg_cs_us)
 
-    # acquire->release latency (paper Figure 1 metric)
-    _record(st.cs_lat, st.cs_cnt, c,
-            (t - st.attempt_t[r, c]).to(torch.float32), cond)
+    # acquire->release latency (paper Figure 1 metric).  The histograms
+    # count a sample whose index (the count before it) is past the warmup.
+    cs_latency = (t - st.attempt_t[r, c]).to(torch.float32)
+    if cfg.hist:
+        _hist_record(st.cs_hist, tb, c, cs_latency,
+                     cond & (st.cs_cnt[r, c] >= pm.hist_warmup))
+    _record(st.cs_lat, st.cs_cnt, c, cs_latency, cond)
     last = s == n_seg - 1
     # Epoch end: record latency; the policy runs its feedback.
     ep_latency = (t - st.epoch_start[r, c]).to(torch.float32)
+    if cfg.hist:
+        _hist_record(st.ep_hist, tb, c, ep_latency,
+                     last & cond & (st.ep_cnt[r, c] >= pm.hist_warmup))
     _record(st.ep_lat, st.ep_cnt, c, ep_latency, last & cond)
     pol.on_release(st, cfg, tb, pm, c, t, ep_latency, last, cond)
 
-    # Bench-3's long epochs: every release splits the key; at an epoch
-    # end the draw sets the next epoch's scale of its non-critical work.
+    # The next epoch's workload.  Bench-3's long epochs: every release
+    # splits the key, and an epoch end draws the scale of its
+    # non-critical work.  ``wl``: counter draws by (seed, core, the next
+    # epoch's index) set its service scale and (closed loop) its think
+    # scale and MMPP phase.
+    upd = last & cond
+    new_scale = None
     if cfg.long_epoch_prob > 0.0:
         u = uniform(advance_key(st, cond))
         new_scale = torch.where(u < pm.long_prob, pm.long_scale, 1.0)
-        scale_c = torch.where(last & cond, new_scale, st.scale[r, c])
+    if _wl_on(cfg) and bool(upd.any()):
+        streams = _EPOCH_STREAMS[:2 if cfg.wl_open else 4]
+        u = wlg.event_uniforms(pm.seed, streams, c, st.ep_cnt[r, c],
+                               st.phase.shape[1])
+        svc = wlg.service_unit(u[:, 0], wlg.normal_of_uniform(u[:, 1]),
+                               _svc_dist(tb, pm, c), pm.wl_cv, pm.wl_mix,
+                               pm.wl_mix_scale)
+        put(st.svc_scale, (c,), svc, upd)
+        if not cfg.wl_open:
+            u_t, u_p = u[:, 2], u[:, 3]
+            on = wlg.phase_flip(u_p, st.wl_on[r, c], pm.wl_burst_len)
+            think = wlg.think_gap(u_t, pm.wl_process, pm.wl_rate, on,
+                                  pm.wl_burst, _phase01(pm, t), pm.wl_amp)
+            new_scale = think if new_scale is None else new_scale * think
+            put(st.wl_on, (c,), on, upd)
+    elif _wl_on(cfg) and not cfg.wl_open and new_scale is None:
+        # No cell ends an epoch (the draws would commit nothing): the
+        # durations keep the current epoch's think scale.
+        new_scale = st.scale[r, c]
+    if new_scale is not None:
+        scale_c = torch.where(upd, new_scale, st.scale[r, c])
         st.scale[r, c] = scale_c
 
         def _sc(d):
@@ -623,16 +755,25 @@ def _handle_release(st, cfg, tb, pm, c, t, cond) -> None:
         def _sc(d):
             return d
 
-    # Advance the program: next segment, or — epoch done — the closed-loop
-    # think gap (inter-epoch + segment-0 noncrit).
+    # Advance the program: next segment, or (epoch done) the closed-loop
+    # think gap (inter-epoch + segment-0 noncrit), or the open-loop
+    # pending-ARRIVAL event at the next arrival (possibly already past).
     nxt = torch.clamp_max(s + 1, n_seg - 1).long()
-    inter = _sc(tb.inter[r, c])
-    ep_start = torch.where(last, t + inter, st.epoch_start[r, c])
-    ready = torch.where(last, t + inter + _sc(tb.nc_dur[r, c, 0]),
-                        t + _sc(tb.nc_dur[r, c, nxt]))
+    mid_ready = t + _sc(tb.nc_dur[r, c, nxt])
+    if cfg.wl_open:
+        ep_start = st.epoch_start[r, c]
+        ready = torch.where(last, torch.maximum(t, st.arr_t[r, c]),
+                            mid_ready)
+        phase_next = torch.where(last, ARRIVAL, NONCRIT).to(torch.int32)
+    else:
+        inter = _sc(tb.inter[r, c])
+        ep_start = torch.where(last, t + inter, st.epoch_start[r, c])
+        ready = torch.where(last, t + inter + _sc(tb.nc_dur[r, c, 0]),
+                            mid_ready)
+        phase_next = NONCRIT
     put(st.seg, (c,), torch.where(last, 0, s + 1), cond)
     put(st.epoch_start, (c,), ep_start, cond)
-    put(st.phase, (c,), NONCRIT, cond)
+    put(st.phase, (c,), phase_next, cond)
     put(st.t_ready, (c,), ready, cond)
 
     # Hand the lock over.
@@ -665,6 +806,8 @@ def _step(cfg: SimConfig, tb: SimTables, pm: SimParams,
     handlers = [(NONCRIT, _handle_acquire), (HOLDER, _handle_release)]
     if pol.uses_standby:
         handlers.append((STANDBY, pol.on_standby_expiry))
+    if cfg.wl_open:
+        handlers.append((ARRIVAL, _handle_arrival))
     for phase, fn in handlers:
         cond = live & (ph == phase)
         # A handler commits nothing where cond is false: skip it when no
@@ -726,19 +869,25 @@ def simulate(cfg: SimConfig, tb: SimTables, pm: SimParams, st: SimState,
 # Sweeps: one batch of cells for a whole figure
 # --------------------------------------------------------------------------
 
+#: The stochastic-workload axes and the SimParams field each sets.
+_WL_AXES = {"arrival_rate": "wl_rate", "cv": "wl_cv", "mix": "wl_mix",
+            "mix_scale": "wl_mix_scale", "burstiness": "wl_burst",
+            "burst_len": "wl_burst_len"}
+#: The fault axes that set their SimParams field as given (f32).
+_FAULT_AXES = ("preempt_rate", "churn_rate", "straggle_rate",
+               "straggle_scale")
 #: Axes that set one SimParams field per cell (``_cell_params``).
 _PARAM_AXES = ("slo_us", "w_big", "prop_n", "seed", "n_cores",
-               "long_epoch_prob", "long_epoch_scale", "wakeup_us")
+               "long_epoch_prob", "long_epoch_scale", "wakeup_us") + \
+    tuple(_WL_AXES) + _FAULT_AXES + ("preempt_scale",)
 #: Gated features: sweeping the axis turns the gate on in the template.
-_GATE_AXES = ("long_epoch_prob", "wakeup_us")
+_GATE_AXES = ("long_epoch_prob", "wakeup_us", "preempt_rate",
+              "churn_rate", "straggle_rate")
 #: Program axes: SimConfig fields rebuilt into each cell's tables.
 _PROGRAM_AXES = ("seg_noncrit_us", "seg_cs_us", "seg_lock",
                  "inter_epoch_us", "big", "speed_cs", "speed_nc")
-#: The reference's other axes, which need features not ported yet.
-_LATER_AXES = (
-    "arrival_rate", "cv", "mix", "mix_scale", "burstiness", "burst_len",
-    "preempt_rate", "preempt_scale", "churn_rate", "straggle_rate",
-    "straggle_scale", "n_keys", "zipf_theta", "n_locks")
+#: The reference's other axes, which need keyed traffic (not ported yet).
+_LATER_AXES = ("n_keys", "zipf_theta", "n_locks")
 
 
 def table_axes() -> tuple:
@@ -815,6 +964,14 @@ def _cell_params(cfg: SimConfig, cell: dict, slo_us, seed) -> dict:
         pm["long_scale"] = np.float32(cell["long_epoch_scale"])
     if "wakeup_us" in cell:
         pm["wakeup"] = np.int32(ticks(cell["wakeup_us"]))
+    for axis, field in _WL_AXES.items():
+        if axis in cell:
+            pm[field] = np.float32(cell[axis])
+    for axis in _FAULT_AXES:
+        if axis in cell:
+            pm[axis] = np.float32(cell[axis])
+    if "preempt_scale" in cell:
+        pm["preempt_scale"] = np.float32(ticks(cell["preempt_scale"]))
     if "window0_us" in cell:
         # A swept initial window plays the role of default_window_us, so
         # the unit floor follows it.
@@ -831,7 +988,8 @@ def sweep_config(cfg: SimConfig, axes: dict) -> SimConfig:
     """The config a sweep over ``axes`` runs under, as the reference's
     ``sweep`` derives it: a ``policy`` axis grows ``policy_set`` (each
     cell's member rides in ``SimParams.pol_id``), and a swept gated
-    feature (long epochs, wakeup, watts) turns its gate on.
+    feature (long epochs, wakeup, the fault rates, a workload axis,
+    watts) turns its gate on.
     :func:`init_sweep` and :func:`simulate` take this config."""
     if not axes:
         raise ValueError("empty sweep: pass at least one axis")
@@ -855,6 +1013,8 @@ def sweep_config(cfg: SimConfig, axes: dict) -> SimConfig:
     for gate in _GATE_AXES:
         if gate in axes and max(axes[gate]) > 0.0:
             cfg = dataclasses.replace(cfg, **{gate: max(axes[gate])})
+    if not cfg.wl and any(a in axes for a in _WL_AXES):
+        cfg = dataclasses.replace(cfg, wl=True)
     # Swept watts turn the energy gate on ((0.0,) pads to all-zero
     # tables, so cells that do not sweep a power column are unchanged).
     if not _energy_on(cfg) and any(
@@ -1054,6 +1214,64 @@ def _ring_values(buf: np.ndarray, cnt: int, warmup: int = 32) -> np.ndarray:
     return vals[max(0, warmup - (cnt - cap)):]
 
 
+def hist_tail(cfg: SimConfig, ep_hist, cs_hist, slo_us=None,
+              slo_scale=None, prefix: str = "hist_") -> dict:
+    """Tail metrics from per-core streaming histograms (``cfg.hist``):
+    ``ep_hist`` / ``cs_hist`` are ``[n, H]`` u32 counts of the active
+    cores, merged across cores by summation.  P50 / P99 / P999 epoch and
+    P99 CS latency per core class in microseconds (each within the
+    layout's relative-error bound), and the histogram-side SLO-good
+    fraction when ``slo_us`` is given."""
+    n = ep_hist.shape[0]
+    big = np.asarray(cfg.big[:n], bool)
+    lo_t, hi_t = cfg.hist_lo_us * US, cfg.hist_hi_us * US
+    out = {}
+    for name, mask in (("all", np.ones_like(big)), ("big", big),
+                       ("little", ~big)):
+        he = stats.merge(ep_hist[mask]) if mask.any() else \
+            np.zeros(ep_hist.shape[1], np.uint64)
+        hc = stats.merge(cs_hist[mask]) if mask.any() else \
+            np.zeros(cs_hist.shape[1], np.uint64)
+        for q, tag in ((50, "p50"), (99, "p99"), (99.9, "p999")):
+            out[f"ep_{tag}_{prefix}{name}_us"] = \
+                stats.quantile(he, q, lo_t, hi_t) / US
+        out[f"cs_p99_{prefix}{name}_us"] = \
+            stats.quantile(hc, 99, lo_t, hi_t) / US
+    out[f"{prefix}rel_err_bound"] = stats.rel_err_bound(
+        lo_t, hi_t, ep_hist.shape[1])
+    if slo_us is not None:
+        scl = np.ones(n) if slo_scale is None else np.asarray(slo_scale)
+        good = tot = 0.0
+        for c in range(n):
+            good += stats.good_count(ep_hist[c], slo_us * scl[c] * US,
+                                     lo_t, hi_t)
+            tot += float(np.asarray(ep_hist[c], np.uint64).sum())
+        out[f"slo_good_frac_{prefix.rstrip('_')}"] = \
+            good / tot if tot else float("nan")
+    return out
+
+
+def fleet_tail(cfg: SimConfig, st: SimState, slo_us=None) -> dict:
+    """Fleet-wide tail metrics of a sweep state: the streaming histograms
+    merged over every cell and core (a sum on the state's device, u32 as
+    the reference's device-side partial sum), quantiles on the host."""
+    if not cfg.hist:
+        raise ValueError("fleet_tail needs a cfg with hist=True")
+
+    def merged(h):
+        if isinstance(h, torch.Tensor):
+            h = h.reshape(-1, h.shape[-1]).to(torch.int64).sum(0)
+            return (h.cpu().numpy() & 0xFFFFFFFF).astype(np.uint64)[None]
+        h = np.asarray(h, np.uint32).reshape(-1, np.shape(h)[-1])
+        return h.sum(0, dtype=np.uint32).astype(np.uint64)[None]
+
+    cfg1 = dataclasses.replace(cfg, n_cores=1, big=(0,), speed_cs=(1.0,),
+                               speed_nc=(1.0,))
+    return {k: v for k, v in hist_tail(cfg1, merged(st.ep_hist),
+                                       merged(st.cs_hist), slo_us).items()
+            if "_big_" not in k and "_little_" not in k}
+
+
 def summarize(cfg: SimConfig, st: SimState, warmup: int = 32,
               n_active: int = None, slo_us: float = None) -> dict:
     """Throughput + tail latency per core class (all values in us) of one
@@ -1101,6 +1319,17 @@ def summarize(cfg: SimConfig, st: SimState, warmup: int = 32,
         # A ring overwrote history: the percentiles above only see the
         # most recent `epcap` samples (recency-biased).
         out["tail_truncated"] = True
+    if cfg.hist:
+        # Full-history quantiles at bounded relative error; where a ring
+        # wrapped they replace the ring's (truncated) percentiles.
+        eph = np.asarray(st.ep_hist, np.uint64)[:n]
+        csh = np.asarray(st.cs_hist, np.uint64)[:n]
+        out.update(hist_tail(cfg, eph, csh))
+        if wrapped:
+            for name in ("all", "big", "little"):
+                out[f"ep_p99_{name}_us"] = out[f"ep_p99_hist_{name}_us"]
+                out[f"ep_p50_{name}_us"] = out[f"ep_p50_hist_{name}_us"]
+                out[f"cs_p99_{name}_us"] = out[f"cs_p99_hist_{name}_us"]
     out["final_window_us"] = (np.asarray(st.window)[:n] / US).tolist()
     # The accumulator is in watt-ticks; 1 tick = 10 ns, so 1 watt-tick =
     # 10 nJ.  The efficiency keys appear only when energy was modeled.
@@ -1123,6 +1352,12 @@ def summarize(cfg: SimConfig, st: SimState, warmup: int = 32,
             good += int(np.sum(v / US <= slo_us * scl[c]))
             tot += v.size
         frac = good / tot if tot else 0.0
+        if cfg.hist:
+            hg = hist_tail(cfg, eph, csh, slo_us=slo_us, slo_scale=scl)
+            out["slo_good_frac_hist"] = hg["slo_good_frac_hist"]
+            if wrapped:
+                # The ring fraction sees only the most recent epochs.
+                frac = out["slo_good_frac_hist"]
         out["slo_good_frac"] = frac
         out["goodput_eps"] = out["throughput_epochs_per_s"] * frac
     return out

@@ -1,7 +1,7 @@
-"""Fault layer of the port.  The fault models themselves are not ported
-yet (a config with a fault rate raises ``NotImplementedError``); the
-per-core eligibility column is registered so ``SimTables.col`` matches
-the JAX package's."""
+"""Fault layer of the port: the fault models' draws (:mod:`.model`:
+holder preemption, core churn, straggler spikes) and the per-core
+eligibility column, registered so ``SimTables.col`` matches the JAX
+package's."""
 
 from repro_torch.core.columns import ColumnSpec, register_column
 

@@ -10,7 +10,13 @@
 // switches on each cell's policy id at every hook (a warp is one cell, so
 // the branch is uniform).  Three runtime gates, read once per launch, add
 // the long-epoch draw, the blocking-lock wakeup on queue-pop handoffs and
-// the energy integration.  Results are bit-identical to the plain PyTorch
+// the energy integration.  A second template parameter gives each policy
+// (and the merged set) a stochastic instantiation, which alone compiles
+// the workload draws (wl: closed-loop think, service, MMPP phase; wl_open:
+// the ARRIVAL event and its gaps), the streaming histograms (hist) and the
+// faults (holder preemption, core churn, straggler spikes), each under a
+// runtime gate of its own; the other instantiations, the fig1 main path's,
+// compile none of it.  Results are bit-identical to the plain PyTorch
 // step (repro_torch/core/simlock.py::_step) and to the JAX package.
 //
 // What bounds it on this card: each cell is one serial chain of events.
@@ -27,7 +33,10 @@
 // independent), about 2 x 20 rounds of three dependent integer ops.  So
 // an event takes a few hundred cycles, not the ~2,000 that the same chain
 // costs through device memory; the card is filled only by running many
-// cells at once.
+// cells at once.  A stochastic epoch end adds up to four counter draws of
+// two threefry blocks each (independent, so their chains overlap) and
+// XLA's f32 log1p / erf_inv / exp polynomials, a chain of ~150 dependent
+// f32 operations; a grant under the faults adds up to two draws.
 //
 // What the design does about it: one warp per cell, lane = core.  At
 // launch start the warp checks that its cell is live (a cell that is not
@@ -56,14 +65,29 @@
 // ptxas re-derived them from the CTA id and the constant bank in every
 // event once the kernel grew its gates (fifo and prop ~25 % slower a
 // launch on small grids until they were pinned).
+// The stochastic instantiations: each draw is uniform(fold_in(counter_key(
+// stream_key(seed, S), core), index)), and each lane folds its own core
+// into the keys of the streams the launch's gates use once a launch (two
+// threefry blocks a stream), keeping them in registers; a handler for
+// core c reads lane c's key with __shfl_sync (every lane runs the
+// handlers, so every lane reaches the shuffle), and a draw then costs two
+// blocks.  Per core they stage the service scale, MMPP phase bit and next
+// arrival (mutable) and the service-id column and fault mask; the
+// histograms stay in device memory like the latency rings (2 x n x 512
+// words a cell, too much to stage), each sample one increment of one
+// word by lane 0 (a cell is one warp: no atomics).  The transcendentals
+// are XLA's own f32 polynomials (below), never CUDA's log1pf / erfinvf /
+// expf / log2f.
 // Shared memory per cell: (13 n + 2 n s + s + 2 l n + 8 l + 32) words for
-// n cores, s segments and l locks (the long-epoch scales and shfl /
-// dvfs_race's counters took n + 2 l of it); up to four cells (warps) a
-// block.
+// n cores, s segments and l locks, 5 n more in a stochastic
+// instantiation (the long-epoch scales and shfl / dvfs_race's counters
+// took n + 2 l of it); up to four cells (warps) a block.
 //
 // Bit-exactness: build with -fmad=false (no a*b+c contraction), keep the
 // reference's compiled f32 operation order (its AIMD unit is one multiply
-// by a folded constant; its energy update one FMA, written as fmaf),
+// by a folded constant; its energy update one FMA, written as fmaf; the
+// FMAs LLVM makes inside XLA's polynomials, in the lognormal, the bimodal
+// mix, the diurnal ramp and the histogram's log2, each written as fmaf),
 // truncate f32->i32 toward zero, take the weighted-pick prefix sum left to
 // right, split the RNG key on every release when long epochs are on and
 // then again in tas / libasl's pick (even when no standby pick follows),
@@ -76,7 +100,7 @@
 namespace {
 
 constexpr int kNonCrit = 0, kStandby = 1, kQueued = 2, kHolder = 3,
-              kSpin = 4;
+              kSpin = 4, kArrival = 5;
 constexpr int kInf = 1 << 30;
 // Policy ids (the registry's order); kMerged is the merged sets'
 // instantiation, which reads each cell's id.
@@ -89,10 +113,13 @@ constexpr unsigned kFull = 0xffffffffu;
 // The operands, in this order (the wrapper's _ORDER): tables, params,
 // state.  All cell-major and contiguous.
 // Null where the launch's gates and policies do not read them: pol_id
-// (merged sets), long_prob, long_scale and scale (long epochs), wakeup,
-// the power tables, n_active and energy (the energy model), dvfs (energy,
-// dvfs_race), race_w, race_bound and race_ctr (dvfs_race), shfl_bound and
-// shfl_ctr (shfl).
+// (merged sets), long_prob, long_scale and scale (long epochs; scale also
+// under wl), wakeup, the power tables, n_active and energy (the energy
+// model), dvfs (energy, dvfs_race), race_w, race_bound and race_ctr
+// (dvfs_race), shfl_bound and shfl_ctr (shfl); and the stochastic
+// instantiations' operands (after kEnergy), each where its gate is on:
+// the seed (any), the wl columns, params and state (wl), the histogram
+// layout, warmup and counts (hist), ft_mask with the fault params.
 enum Operand {
   kBig, kCsDur, kNcDur, kInter, kSegLock, kSloScale, kDvfs, kRaceW, kPCs,
   kPSpin, kPPark, kPIdle,
@@ -100,7 +127,15 @@ enum Operand {
   kWakeup, kShflBound, kRaceBound,
   kT, kKey, kPhase, kTReady, kSeg, kEpochStart, kAttemptT, kWindow, kUnit,
   kScale, kQ, kQHead, kQTail, kHolderOp, kPropCtr, kShflCtr, kRaceCtr,
-  kEpLat, kEpCnt, kCsLat, kCsCnt, kEvents, kEnergy, kNumOperands
+  kEpLat, kEpCnt, kCsLat, kCsCnt, kEvents, kEnergy,
+  // tables
+  kWlServiceCol, kFtMask, kHistLog2Lo, kHistInvLog2g,
+  // params
+  kSeed, kWlProcess, kWlService, kWlRate, kWlCv, kWlMix, kWlMixScale,
+  kWlBurst, kWlBurstLen, kWlAmp, kWlPeriod, kPreemptRate, kPreemptScale,
+  kChurnRate, kChurnPeriod, kStraggleRate, kStraggleScale, kHistWarmup,
+  // state
+  kSvcScale, kWlOn, kArrT, kEpHist, kCsHist, kNumOperands
 };
 
 // x mod d for 32-bit x >= 0 by two multiplies (Lemire, Kaser and Kurz,
@@ -123,13 +158,20 @@ struct Args {
   void* p[kNumOperands];
   int n_cells, n, s, l, cap, chunk, max_events;
   int long_on, wakeup_on, energy_on;  // the gates, uniform per launch
+  // The stochastic instantiations' gates: workload draws (closed or open
+  // loop), open loop, histograms (with their bucket count), preemption,
+  // churn and straggling.
+  int wl_on, open_on, hist_on, hist_buckets, preempt_on, churn_on,
+      straggle_on;
   float unit_mul, max_window;
   FastMod mod_n, mod_cap;
 };
 
-// Words of shared memory one cell takes (see the header).
-__host__ __device__ constexpr int cell_words(int n, int s, int l) {
-  return 13 * n + 2 * n * s + s + 2 * l * n + 8 * l + 32;
+// Words of shared memory one cell takes (see the header): a stochastic
+// instantiation stages 5 more per core.
+__host__ __device__ constexpr int cell_words(int n, int s, int l,
+                                             bool stoch) {
+  return 13 * n + 2 * n * s + s + 2 * l * n + 8 * l + 32 + (stoch ? 5 * n : 0);
 }
 
 // One cell: pointers into its shared-memory stage, its rings in device
@@ -161,9 +203,18 @@ struct Cell {
   int* nc_dur;
   int* seg_lock;
   float* wbuf;       // one weight per lane (pick_next)
+  // stochastic instantiations: mutable, staged
+  float* svc_scale;  // each core's epoch service scale (wl)
+  int* wl_on;        // each core's MMPP phase bit (wl)
+  int* arr_t;        // each core's next open-loop arrival (wl_open)
+  // ... read-only, staged
+  int* wl_service;   // each core's SERVICES id override, -1 = the cell's
+  float* ft_mask;    // each core's fault eligibility
   // device memory
   float* ep_lat;
   float* cs_lat;
+  int* ep_hist;      // [n, hist_buckets] u32 counts (hist)
+  int* cs_hist;
   // registers
   int tr;            // this lane's core's t_ready
   int slo_t;         // this lane's core's SLO in ticks, capped (edf)
@@ -175,11 +226,24 @@ struct Cell {
   bool long_on;
   FastMod mod_n, mod_cap;
   float unit_mul, max_window;
+  // stochastic instantiations: this lane's core's stream keys (each
+  // counter_key(stream_key(seed, S), core)), the gates and the cell's
+  // params, in registers.
+  uint32_t th0, th1, sv0, sv1, sz0, sz1, ph0, ph1;  // think, service u/z,
+                                                    // phase (wl)
+  uint32_t pr0, pr1, pz0, pz1, sp0, sp1, ch0, ch1;  // preempt u/stall,
+                                                    // spike, churn
+  bool wl, open, hist, preempt, churn, straggle, scaled;
+  int wl_process, wl_service_cell, churn_period, hist_warmup, hb;
+  float wl_rate, wl_cv, wl_mix, wl_mix_scale, wl_burst, wl_burst_len,
+      wl_amp, wl_period, preempt_rate, preempt_scale, churn_rate,
+      straggle_rate, straggle_scale, log2_lo, inv_log2g;
 };
 
-// Carve one cell's stage out of `base` (cell_words(n, s, l) words).
+// Carve one cell's stage out of `base` (cell_words(n, s, l, stoch)
+// words).
 __device__ __forceinline__ void carve(Cell& c, int* base, int n, int s,
-                                      int l) {
+                                      int l, bool stoch) {
   int* p = base;
   c.phase = p;        p += n;
   c.lk = p;           p += n;
@@ -204,7 +268,14 @@ __device__ __forceinline__ void carve(Cell& c, int* base, int n, int s,
   c.prop_ctr = p;     p += l;
   c.shfl_ctr = p;     p += l;
   c.race_ctr = p;     p += l;
-  c.wbuf = reinterpret_cast<float*>(p);
+  c.wbuf = reinterpret_cast<float*>(p);  p += 32;
+  if (stoch) {
+    c.svc_scale = reinterpret_cast<float*>(p);  p += n;
+    c.wl_on = p;        p += n;
+    c.arr_t = p;        p += n;
+    c.wl_service = p;   p += n;
+    c.ft_mask = reinterpret_cast<float*>(p);
+  }
 }
 
 // Copy `count` 4-byte words between a warp's lanes.
@@ -289,6 +360,194 @@ __device__ __forceinline__ int weighted_pick(Cell& c, float w, uint32_t s0,
   return over ? __ffs(over) - 1 : 0;
 }
 
+// ------------------------------------------------ XLA's f32 math ----
+// The compiled reference's log / log1p / exp / erf_inv: XLA's CPU
+// backend inlines these polynomials (no libm), and LLVM fuses a multiply
+// into the add that is its only use.  Written here as the same f32
+// operations (repro_torch/core/xla_math.py), with fmaf exactly where the
+// reference fuses; -fmad=false keeps every other product rounded.
+
+__device__ __forceinline__ float bits_f(uint32_t b) {
+  return __uint_as_float(b);
+}
+
+__device__ __forceinline__ float xla_log(float x) {
+  const float xc = x > bits_f(0x00800000u) ? x : bits_f(0x00800000u);
+  const int bits = __float_as_int(xc);
+  float e = static_cast<float>((bits >> 23) - 127) + 1.0f;
+  const float m = __int_as_float((bits & 0x7FFFFF) | 0x3F000000);
+  const bool small = m < bits_f(0x3F3504F3u);
+  e = e - (small ? 1.0f : 0.0f);
+  const float v = (m - 1.0f) + (small ? m : 0.0f);
+  const float v2 = v * v, v3 = v2 * v;
+  const float y1 = fmaf(fmaf(v, bits_f(0x3D9021BBu), bits_f(0xBDEBD1B8u)), v,
+                        bits_f(0x3DEF251Au));
+  const float y2 = fmaf(fmaf(v, bits_f(0xBDFE5D4Fu), bits_f(0x3E11E9BFu)), v,
+                        bits_f(0xBE2AAE50u));
+  const float y3 = fmaf(fmaf(v, bits_f(0x3E4CCEACu), bits_f(0xBE7FFFFCu)), v,
+                        bits_f(0x3EAAAAAAu));
+  float y = fmaf(fmaf(y1, v3, y2), v3, y3);
+  y = fmaf(y, v3, e * bits_f(0xB95E8083u));
+  float r = fmaf(e, bits_f(0x3F318000u), (v - v2 * 0.5f) + y);
+  if (x == __int_as_float(0x7F800000)) r = x;
+  if (x == 0.0f) r = __int_as_float(0xFF800000);
+  if (x < 0.0f || x != x) r = __int_as_float(0x7FC00000);
+  return r;
+}
+
+__device__ __forceinline__ float xla_log1p(float x) {
+  const float x2 = x * x;
+  float q = 1.0f + x * 0.0f;
+  q = fmaf(q, x, bits_f(0x417101ADu));
+  q = fmaf(q, x, bits_f(0x42A6185Bu));
+  q = fmaf(q, x, bits_f(0x435DC32Du));
+  q = fmaf(q, x, bits_f(0x439A8CA3u));
+  q = fmaf(q, x, bits_f(0x43586D8Au));
+  q = fmaf(q, x, bits_f(0x42707982u));
+  float p = bits_f(0x383DE04Bu) + x * 0.0f;
+  p = fmaf(p, x, bits_f(0x3EFF40C5u));
+  p = fmaf(p, x, bits_f(0x40D284FAu));
+  p = fmaf(p, x, bits_f(0x41EF4B9Cu));
+  p = fmaf(p, x, bits_f(0x4273CC76u));
+  p = fmaf(p, x, bits_f(0x426473ADu));
+  p = fmaf(p, x, bits_f(0x41A05101u));
+  if (fabsf(x) < bits_f(0x3ED413CDu))
+    return x + ((x * x2) * (p / q) + x2 * -0.5f);
+  return xla_log(x + 1.0f);
+}
+
+__device__ __forceinline__ float xla_exp(float x) {
+  x = x >= bits_f(0xC2AF999Au) ? x : bits_f(0xC2AF999Au);
+  x = x <= bits_f(0x42B1999Au) ? x : bits_f(0x42B1999Au);
+  float n = floorf(fmaf(x, bits_f(0x3FB8AA3Bu), 0.5f));
+  n = fminf(fmaxf(n, -127.0f), 127.0f);
+  const float r = fmaf(-n, bits_f(0xB95E8083u),
+                       fmaf(-n, bits_f(0x3F318000u), x));
+  float p = fmaf(r, bits_f(0x39506967u), bits_f(0x3AB743CEu));
+  p = fmaf(p, r, bits_f(0x3C088908u));
+  p = fmaf(p, r, bits_f(0x3D2AA9C1u));
+  p = fmaf(p, r, bits_f(0x3E2AAAAAu));
+  p = fmaf(p, r, 0.5f);
+  const float y = 1.0f + fmaf(p, r * r, r);
+  return y * __int_as_float((static_cast<int>(n) + 127) << 23);
+}
+
+__device__ __forceinline__ float xla_erf_inv(float x) {
+  const float lg = xla_log1p(x * -x);  // -w
+  const bool lt5 = lg > -5.0f;
+  const float z = lt5 ? -2.5f - lg : sqrtf(-lg) - 3.0f;
+#define C(a, b) (lt5 ? bits_f(a) : bits_f(b))
+  float p = fmaf(C(0x32F16588u, 0xB951F09Bu), z, C(0x34B84B36u, 0x38D3B56Bu));
+  p = fmaf(z, p, C(0xB66C7357u, 0x3AB0DC72u));
+  p = fmaf(z, p, C(0xB6935AC1u, 0xBB70BDE7u));
+  p = fmaf(z, p, C(0x396532DBu, 0x3BBC127Bu));
+  p = fmaf(z, p, C(0xBAA45408u, 0xBBF9C5D7u));
+  p = fmaf(z, p, C(0xBB88E4EFu, 0x3C1AA57Eu));
+  p = fmaf(z, p, C(0x3E7C8F63u, 0x3F8036DBu));
+  p = fmaf(z, p, C(0x3FC02E2Fu, 0x40354F7Eu));
+#undef C
+  if (fabsf(x) == 1.0f) p = __int_as_float(0x7F800000);
+  return x * p;
+}
+
+// sin in f64 (pi/2 in two parts, fdlibm's kernels), rounded once to f32:
+// the same f64 operations as xla_math.sin.
+__device__ __forceinline__ float sin_f32(float xf) {
+  const double x = xf;
+  const double k = rint(x * 6.36619772367581382433e-01);
+  const double r = (x - k * 1.57079632673412561417e+00)
+                   - k * 6.07710050650619224932e-11;
+  const double z = r * r;
+  const double s = r + (r * z) * (-1.66666666666666324348e-01 +
+      z * (8.33333333332248946124e-03 + z * (-1.98412698298579493134e-04 +
+      z * (2.75573137070700676789e-06 + z * (-2.50507602534068634195e-08 +
+      z * 1.58969099521155010221e-10)))));
+  const double co = (1.0 - 0.5 * z) + (z * z) * (4.16666666666666019037e-02 +
+      z * (-1.38888888888741095749e-03 + z * (2.48015872894767294178e-05 +
+      z * (-2.75573143513906633035e-07 + z * (2.08757232129817482790e-09 +
+      z * -1.13596475577881948265e-11)))));
+  const int q = static_cast<int>(static_cast<long long>(k) & 3);
+  const double out = q == 0 ? s : q == 1 ? co : q == 2 ? -s : -co;
+  return static_cast<float>(out);
+}
+
+// --------------------------------------------------- workload draws ----
+// Each draw is uniform(fold_in(counter_key(stream_key(seed, S), core),
+// index)): the per-core key is folded once a launch, so a draw costs two
+// threefry blocks.
+
+__device__ __forceinline__ float draw(uint32_t k0, uint32_t k1, int ix) {
+  uint32_t x0 = 0, x1 = static_cast<uint32_t>(ix);
+  threefry2x32(k0, k1, x0, x1);
+  return uniform01(x0, x1);
+}
+
+// `core`'s key of one stream, from its lane (every lane calls this).
+__device__ __forceinline__ float draw_of(uint32_t k0, uint32_t k1, int core,
+                                         int ix) {
+  return draw(__shfl_sync(kFull, k0, core), __shfl_sync(kFull, k1, core), ix);
+}
+
+// counter_key(stream_key(seed, stream), core).
+__device__ __forceinline__ void core_key(uint32_t seed, uint32_t stream,
+                                         int core, uint32_t& k0,
+                                         uint32_t& k1) {
+  uint32_t a = 0, b = stream;
+  threefry2x32(0u, seed, a, b);
+  k0 = 0;
+  k1 = static_cast<uint32_t>(core);
+  threefry2x32(a, b, k0, k1);
+}
+
+__device__ __forceinline__ float exp_unit(float u) { return -xla_log1p(-u); }
+
+// jax.random.normal from its uniform: max(lo, f * 2 + lo), sqrt(2) erf_inv.
+__device__ __forceinline__ float normal_of(float f) {
+  const float lo = bits_f(0xBF7FFFFFu);
+  return xla_erf_inv(fmaxf(f * 2.0f + lo, lo)) * bits_f(0x3FB504F3u);
+}
+
+__device__ __forceinline__ float service_unit(float u, float z, int dist,
+                                              const Cell& c) {
+  if (dist == 1) return exp_unit(u);
+  if (dist == 2) {  // lognormal, mean 1, cv
+    const float s2 = xla_log1p(c.wl_cv * c.wl_cv);
+    return xla_exp(fmaf(sqrtf(s2), z, -(0.5f * s2)));
+  }
+  if (dist == 3) {  // bimodal Get/Put mix
+    const float short_mode =
+        1.0f / fmaf(c.wl_mix, c.wl_mix_scale, 1.0f - c.wl_mix);
+    return u < c.wl_mix ? short_mode * c.wl_mix_scale : short_mode;
+  }
+  return 1.0f;
+}
+
+__device__ __forceinline__ int phase_flip(float u, int on, const Cell& c) {
+  return u < 1.0f / fmaxf(c.wl_burst_len, 1.0f) ? 1 - on : on;
+}
+
+// The diurnal cycle position of tick t.
+__device__ __forceinline__ float phase01(const Cell& c, int t) {
+  return fmodf(static_cast<float>(t) / fmaxf(c.wl_period, 1.0f), 1.0f);
+}
+
+__device__ __forceinline__ float think_gap(float u, int on, float p01,
+                                           const Cell& c) {
+  const float rate = c.wl_rate;
+  const float e1 = exp_unit(u);
+  if (c.wl_process == 1) return e1 / rate;
+  if (c.wl_process == 2) {  // MMPP: on = burstiness x off
+    const float b = c.wl_burst;
+    const float r_off = rate * (1.0f + b) / (2.0f * b);
+    return e1 / (on == 1 ? b * r_off : r_off);
+  }
+  if (c.wl_process == 3) {  // diurnal ramp, floored at 5 % of the mean
+    const float mod = fmaf(c.wl_amp, sin_f32(bits_f(0x40C90FDBu) * p01), 1.0f);
+    return e1 / fmaxf(rate * mod, 0.05f * rate);
+  }
+  return 1.0f / rate;
+}
+
 // ------------------------------------------------------------ helpers ----
 
 __device__ __forceinline__ int qlen(const Cell& c, int l, int b) {
@@ -319,14 +578,49 @@ __device__ __forceinline__ void set_ready(Cell& c, int core, int v) {
   if (c.lane == core) c.tr = v;
 }
 
-// Make `core` the holder of its segment's lock; schedule its release.  A
-// queue-pop handoff (`handoff`) pays the wakeup when that gate is on.
+// Make `core` the holder of its segment's lock; schedule its release,
+// in the reference's order: the critical section scaled by the epoch's
+// service draw (wl; at least one tick), plus a straggler spike and a
+// preemption stall (drawn by the core's critical-section count, the
+// rates times its ft_mask), plus the wakeup of a queue-pop handoff
+// (`handoff`) when that gate is on.
 __device__ __forceinline__ void grant(Cell& c, int core, int t,
                                       bool handoff = false) {
   c.holder[c.lk[core]] = core;
   c.phase[core] = kHolder;
-  const int dur = c.cs_dur[core * c.s + c.seg[core]];
+  int dur = c.cs_dur[core * c.s + c.seg[core]];
+  if (c.wl)
+    dur = max(static_cast<int>(static_cast<float>(dur) * c.svc_scale[core]),
+              1);
+  if (c.straggle || c.preempt) {
+    const int gix = c.cs_cnt[core];
+    const float elig = c.ft_mask[core];
+    if (c.straggle) {
+      const float u = draw_of(c.sp0, c.sp1, core, gix);
+      const int extra = static_cast<int>(static_cast<float>(dur) *
+                                         (c.straggle_scale - 1.0f));
+      if (u < c.straggle_rate * elig) dur += extra;
+    }
+    if (c.preempt) {
+      const float u = draw_of(c.pr0, c.pr1, core, gix);
+      const float uz = draw_of(c.pz0, c.pz1, core, gix);
+      const int stall = static_cast<int>(c.preempt_scale * exp_unit(uz));
+      if (u < c.preempt_rate * elig) dur += stall;
+    }
+  }
   set_ready(c, core, t + (handoff ? dur + c.wakeup : dur));
+}
+
+// One latency sample into `core`'s log-bucketed histogram row (device
+// memory, lane 0): 1 + floor((log2(max(v, 1e-6)) - log2_lo) * inv_log2g),
+// clipped, the log2's multiply fused into the subtraction as the
+// compiled reference does it.
+__device__ __forceinline__ void hist_record(const Cell& c, int* h, int core,
+                                            float v) {
+  const float lg = fmaf(xla_log(fmaxf(v, 1e-6f)), bits_f(0x3FB8AA3Bu),
+                        -c.log2_lo) * c.inv_log2g;
+  const int idx = min(max(1 + static_cast<int>(floorf(lg)), 0), c.hb - 1);
+  if (c.lane == 0) h[core * c.hb + idx] += 1;
 }
 
 __device__ __forceinline__ void park(Cell& c, int core, int ph) {
@@ -531,53 +825,108 @@ __device__ __forceinline__ void pick_next(Cell& c, int l, int t) {
     }                                                          \
   } while (0)
 
-// A duration of the next epoch's program under its long-epoch scale
-// (int(float(d) * scale), truncated); unscaled when long epochs are off.
-__device__ __forceinline__ int scaled(const Cell& c, int d, float scale) {
-  return c.long_on
-             ? static_cast<int>(__fmul_rn(static_cast<float>(d), scale))
-             : d;
+// A duration of the next epoch's program under its scale (the long-epoch
+// and closed-loop think draws; int(float(d) * scale), truncated);
+// unscaled when neither is on.
+__device__ __forceinline__ int scaled(bool on, int d, float scale) {
+  return on ? static_cast<int>(__fmul_rn(static_cast<float>(d), scale)) : d;
 }
 
+// Release: the latency records (and the histograms), libasl's AIMD, the
+// next epoch's workload, the next segment, and the policy's pick of the
+// next holder.  Outside the stochastic instantiations the wl / open /
+// hist gates are constant false and their paths compile away.
 template <int P>
 __device__ __forceinline__ void release(Cell& c, int core, int t) {
   const int s = c.seg[core];
   const int l = c.lk[core];
-  record(c, c.cs_lat, c.cs_cnt, core,
-         static_cast<float>(t - c.attempt_t[core]));
+  // The histograms count a sample whose index (the count before it) is
+  // past the warmup.
+  const float cs_latency = static_cast<float>(t - c.attempt_t[core]);
+  if (c.hist && c.cs_cnt[core] >= c.hist_warmup)
+    hist_record(c, c.cs_hist, core, cs_latency);
+  record(c, c.cs_lat, c.cs_cnt, core, cs_latency);
   const bool last = s == c.s - 1;
   const float ep_latency = static_cast<float>(t - c.epoch_start[core]);
-  if (last) record(c, c.ep_lat, c.ep_cnt, core, ep_latency);
+  if (last) {
+    if (c.hist && c.ep_cnt[core] >= c.hist_warmup)
+      hist_record(c, c.ep_hist, core, ep_latency);
+    record(c, c.ep_lat, c.ep_cnt, core, ep_latency);
+  }
   const bool libasl = P == kLibasl || (P == kMerged && c.pol == kLibasl);
   if (libasl && last && c.big[core] == 0) aimd(c, core, ep_latency);
-  // Long epochs: every release splits the key; an epoch end draws the
-  // next epoch's scale of its non-critical work.
-  float scale = 1.0f;
+  // The next epoch's workload.  Long epochs: every release splits the
+  // key; an epoch end draws the scale of its non-critical work.  wl: the
+  // draws by (core, the next epoch's index) set its service scale and,
+  // closed loop, its think scale and MMPP phase.
+  float scale = c.scaled ? c.scale[core] : 1.0f;
   if (c.long_on) {
     uint32_t s0, s1;
     advance_key(c, s0, s1);
-    scale = c.scale[core];
     if (last) {
       scale = uniform01(s0, s1) < c.long_prob ? c.long_scale : 1.0f;
       c.scale[core] = scale;
     }
   }
-  const int inter = scaled(c, c.inter[core], scale);
+  if (c.wl && last) {
+    const int ep = c.ep_cnt[core];
+    const float u_s = draw_of(c.sv0, c.sv1, core, ep);
+    const float z_s = normal_of(draw_of(c.sz0, c.sz1, core, ep));
+    const int dist = c.wl_service[core];
+    c.svc_scale[core] =
+        service_unit(u_s, z_s, dist >= 0 ? dist : c.wl_service_cell, c);
+    if (!c.open) {
+      const float u_t = draw_of(c.th0, c.th1, core, ep);
+      const float u_p = draw_of(c.ph0, c.ph1, core, ep);
+      const int on = phase_flip(u_p, c.wl_on[core], c);
+      const float think = think_gap(u_t, on, phase01(c, t), c);
+      scale = c.long_on ? __fmul_rn(scale, think) : think;
+      c.scale[core] = scale;
+      c.wl_on[core] = on;
+    }
+  }
+  const int inter = scaled(c.scaled, c.inter[core], scale);
   if (last) {
     c.seg[core] = 0;
     c.lk[core] = c.seg_lock[0];
-    c.epoch_start[core] = t + inter;
-    set_ready(c, core, t + inter + scaled(c, c.nc_dur[core * c.s], scale));
+    if (c.open) {
+      // Open loop: park on the pending arrival (possibly already past).
+      set_ready(c, core, max(t, c.arr_t[core]));
+    } else {
+      c.epoch_start[core] = t + inter;
+      set_ready(c, core,
+                t + inter + scaled(c.scaled, c.nc_dur[core * c.s], scale));
+    }
   } else {
     c.seg[core] = s + 1;
     c.lk[core] = c.seg_lock[s + 1];
-    set_ready(c, core, t + scaled(c, c.nc_dur[core * c.s +
-                                               min(s + 1, c.s - 1)],
+    set_ready(c, core, t + scaled(c.scaled,
+                                  c.nc_dur[core * c.s + min(s + 1, c.s - 1)],
                                   scale));
   }
-  c.phase[core] = kNonCrit;
+  c.phase[core] = last && c.open ? kArrival : kNonCrit;
   c.holder[l] = -1;
   BY_POLICY(P, pick_next, c, l, t);
+}
+
+// Open loop: the pending arrival fired.  The epoch begins at its true
+// arrival time (in the past when the core is backlogged), and the next
+// arrival's gap is drawn (index: the arrivals so far + 1).
+__device__ __forceinline__ void arrival(Cell& c, int core, int t) {
+  const int a = c.arr_t[core];
+  const int ix = c.ep_cnt[core] + 1;
+  const float u_t = draw_of(c.th0, c.th1, core, ix);
+  const float u_p = draw_of(c.ph0, c.ph1, core, ix);
+  const int on = phase_flip(u_p, c.wl_on[core], c);
+  const float gap = think_gap(u_t, on, phase01(c, t), c);
+  const int nc = c.nc_dur[core * c.s];
+  const float base = static_cast<float>(c.inter[core] + nc);
+  c.arr_t[core] = a + max(static_cast<int>(base * gap), 1);
+  c.wl_on[core] = on;
+  c.epoch_start[core] = a;
+  c.phase[core] = kNonCrit;
+  set_ready(c, core,
+            t + static_cast<int>(static_cast<float>(nc) * c.scale[core]));
 }
 
 // One event of one cell (the caller checked that the cell is live).
@@ -585,6 +934,15 @@ template <int P>
 __device__ __forceinline__ void step(Cell& c, int core, int t) {
   const int ph = c.phase[core];
   if (ph == kNonCrit) {
+    if (c.churn) {
+      // Core churn: an attempt in an "off" slot bounces to the next slot
+      // boundary; the policy never sees it.
+      const int slot = t / c.churn_period;
+      if (draw_of(c.ch0, c.ch1, core, slot) < c.churn_rate * c.ft_mask[core]) {
+        set_ready(c, core, (slot + 1) * c.churn_period);
+        return;
+      }
+    }
     c.attempt_t[core] = t;
     BY_POLICY(P, acquire, c, core, t);
   } else if (ph == kHolder) {
@@ -594,6 +952,8 @@ __device__ __forceinline__ void step(Cell& c, int core, int t) {
       standby_expiry(c, core, t);
   } else if (ph == kQueued || ph == kSpin) {
     set_ready(c, core, kInf);  // defensive re-park
+  } else if (ph == kArrival) {
+    if (c.open) arrival(c, core, t);
   }
 }
 
@@ -609,7 +969,10 @@ __device__ __forceinline__ T* at_opt(const Args& a, Operand k,
   return a.p[k] ? static_cast<T*>(a.p[k]) + offset : nullptr;
 }
 
-template <int P>
+// P: the policy (kMerged: each cell's).  ST: the stochastic
+// instantiation, which stages and runs the wl / wl_open / hist / fault
+// paths under their gates; the others compile none of them.
+template <int P, bool ST>
 __global__ void __launch_bounds__(kMaxWarpsPerBlock * 32)
     fused_chunk_kernel(const Args a, int warps_per_block) {
   extern __shared__ int smem[];
@@ -633,10 +996,10 @@ __global__ void __launch_bounds__(kMaxWarpsPerBlock * 32)
 
   // The cell's stage as a 32-bit shared address, pinned in a register.
   unsigned stage = static_cast<unsigned>(
-      __cvta_generic_to_shared(smem + w * cell_words(n, s, l)));
+      __cvta_generic_to_shared(smem + w * cell_words(n, s, l, ST)));
   asm volatile("" : "+r"(stage));
   Cell c;
-  carve(c, static_cast<int*>(__cvta_shared_to_generic(stage)), n, s, l);
+  carve(c, static_cast<int*>(__cvta_shared_to_generic(stage)), n, s, l, ST);
   c.lane = lane;
   c.tr = tr0;
   c.n = n;
@@ -649,6 +1012,15 @@ __global__ void __launch_bounds__(kMaxWarpsPerBlock * 32)
   c.unit_mul = a.unit_mul;
   c.max_window = a.max_window;
   c.long_on = a.long_on != 0;
+  // The stochastic gates: constant false outside ST, so the paths they
+  // guard compile away.
+  c.wl = ST && a.wl_on != 0;
+  c.open = ST && a.open_on != 0;
+  c.hist = ST && a.hist_on != 0;
+  c.preempt = ST && a.preempt_on != 0;
+  c.churn = ST && a.churn_on != 0;
+  c.straggle = ST && a.straggle_on != 0;
+  c.scaled = c.long_on || (c.wl && !c.open);
   c.slo = *at<float>(a, kSlo, cb);
   c.pol = P == kMerged ? *at<int>(a, kPolId, cb) : P;
   c.w_big = *at<float>(a, kWBig, cb);
@@ -666,6 +1038,54 @@ __global__ void __launch_bounds__(kMaxWarpsPerBlock * 32)
   int t = *at<int>(a, kT, cb);
   c.ep_lat = at<float>(a, kEpLat, cb * n * a.cap);
   c.cs_lat = at<float>(a, kCsLat, cb * n * a.cap);
+  if (ST) {
+    // The cell's params of the gated features, and this lane's core's
+    // key of each stream they draw from.
+    const uint32_t seed =
+        (c.wl || c.preempt || c.churn || c.straggle)
+            ? static_cast<uint32_t>(*at<int>(a, kSeed, cb)) : 0u;
+    const int core = lane;
+    if (c.wl) {
+      c.wl_process = *at<int>(a, kWlProcess, cb);
+      c.wl_service_cell = *at<int>(a, kWlService, cb);
+      c.wl_rate = *at<float>(a, kWlRate, cb);
+      c.wl_cv = *at<float>(a, kWlCv, cb);
+      c.wl_mix = *at<float>(a, kWlMix, cb);
+      c.wl_mix_scale = *at<float>(a, kWlMixScale, cb);
+      c.wl_burst = *at<float>(a, kWlBurst, cb);
+      c.wl_burst_len = *at<float>(a, kWlBurstLen, cb);
+      c.wl_amp = *at<float>(a, kWlAmp, cb);
+      c.wl_period = *at<float>(a, kWlPeriod, cb);
+      core_key(seed, 0x7781u, core, c.th0, c.th1);
+      core_key(seed, 0x7782u, core, c.sv0, c.sv1);
+      core_key(seed, 0x7782u ^ 0x40000u, core, c.sz0, c.sz1);
+      core_key(seed, 0x7783u, core, c.ph0, c.ph1);
+    }
+    if (c.preempt) {
+      c.preempt_rate = *at<float>(a, kPreemptRate, cb);
+      c.preempt_scale = *at<float>(a, kPreemptScale, cb);
+      core_key(seed, 0x7787u, core, c.pr0, c.pr1);
+      core_key(seed, 0x7787u ^ 0x40000u, core, c.pz0, c.pz1);
+    }
+    if (c.churn) {
+      c.churn_rate = *at<float>(a, kChurnRate, cb);
+      c.churn_period = *at<int>(a, kChurnPeriod, cb);
+      core_key(seed, 0x7788u, core, c.ch0, c.ch1);
+    }
+    if (c.straggle) {
+      c.straggle_rate = *at<float>(a, kStraggleRate, cb);
+      c.straggle_scale = *at<float>(a, kStraggleScale, cb);
+      core_key(seed, 0x7789u, core, c.sp0, c.sp1);
+    }
+    if (c.hist) {
+      c.hb = a.hist_buckets;
+      c.hist_warmup = *at<int>(a, kHistWarmup, cb);
+      c.log2_lo = *at<float>(a, kHistLog2Lo, cb);
+      c.inv_log2g = *at<float>(a, kHistInvLog2g, cb);
+      c.ep_hist = at<int>(a, kEpHist, cb * n * a.hist_buckets);
+      c.cs_hist = at<int>(a, kCsHist, cb * n * a.hist_buckets);
+    }
+  }
 
   // Stage the cell: every load of a pass is issued before its stores, so
   // each pass costs one round trip to device memory.  Each lane keeps its
@@ -685,7 +1105,8 @@ __global__ void __launch_bounds__(kMaxWarpsPerBlock * 32)
     const int cs_cnt = at<int>(a, kCsCnt, cn)[lane];
     const float window = at<float>(a, kWindow, cn)[lane];
     const float unit = at<float>(a, kUnit, cn)[lane];
-    const float scale = c.long_on ? at<float>(a, kScale, cn)[lane] : 1.0f;
+    const float scale =
+        c.long_on || c.wl ? at<float>(a, kScale, cn)[lane] : 1.0f;
     const int big = at<int>(a, kBig, cn)[lane];
     const int inter = at<int>(a, kInter, cn)[lane];
     const float slo_scale = at<float>(a, kSloScale, cn)[lane];
@@ -702,6 +1123,14 @@ __global__ void __launch_bounds__(kMaxWarpsPerBlock * 32)
     c.big[lane] = big;
     c.inter[lane] = inter;
     c.slo_scale[lane] = slo_scale;
+    if (ST) {
+      c.svc_scale[lane] = c.wl ? at<float>(a, kSvcScale, cn)[lane] : 1.0f;
+      c.wl_on[lane] = c.wl ? at<int>(a, kWlOn, cn)[lane] : 0;
+      c.arr_t[lane] = c.open ? at<int>(a, kArrT, cn)[lane] : 0;
+      c.wl_service[lane] = c.wl ? at<int>(a, kWlServiceCol, cn)[lane] : -1;
+      c.ft_mask[lane] = c.preempt || c.churn || c.straggle
+                            ? at<float>(a, kFtMask, cn)[lane] : 1.0f;
+    }
     // edf's deadline offset: the SLO in ticks, capped, truncated.
     c.slo_t = static_cast<int>(
         fminf(__fmul_rn(c.slo, slo_scale), a.max_window));
@@ -798,7 +1227,13 @@ __global__ void __launch_bounds__(kMaxWarpsPerBlock * 32)
   warp_copy(at<int>(a, kCsCnt, cn), c.cs_cnt, n, lane);
   warp_copy(at<float>(a, kWindow, cn), c.window, n, lane);
   warp_copy(at<float>(a, kUnit, cn), c.unit, n, lane);
-  if (c.long_on) warp_copy(at<float>(a, kScale, cn), c.scale, n, lane);
+  if (c.long_on || c.wl)
+    warp_copy(at<float>(a, kScale, cn), c.scale, n, lane);
+  if (c.wl) {
+    warp_copy(at<float>(a, kSvcScale, cn), c.svc_scale, n, lane);
+    warp_copy(at<int>(a, kWlOn, cn), c.wl_on, n, lane);
+  }
+  if (c.open) warp_copy(at<int>(a, kArrT, cn), c.arr_t, n, lane);
   warp_copy(at<int>(a, kQ, cq * n), c.q, 2 * l * n, lane);
   warp_copy(at<int>(a, kQHead, cq), c.q_head, 2 * l, lane);
   warp_copy(at<int>(a, kQTail, cq), c.q_tail, 2 * l, lane);
@@ -815,21 +1250,45 @@ __global__ void __launch_bounds__(kMaxWarpsPerBlock * 32)
   }
 }
 
-template <int P>
+template <int P, bool ST>
 int launch(const Args& a, cudaStream_t stream) {
-  const int bytes = 4 * cell_words(a.n, a.s, a.l);
+  const int bytes = 4 * cell_words(a.n, a.s, a.l, ST);
   if (bytes > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
   const int warps = min(kMaxWarpsPerBlock, kSmemLimit / bytes);
   const int smem = warps * bytes;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        fused_chunk_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        fused_chunk_kernel<P, ST>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int blocks = (a.n_cells + warps - 1) / warps;
-  fused_chunk_kernel<P><<<blocks, warps * 32, smem, stream>>>(a, warps);
+  fused_chunk_kernel<P, ST><<<blocks, warps * 32, smem, stream>>>(a, warps);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool ST>
+int launch_policy(int policy, const Args& a, cudaStream_t st) {
+  switch (policy) {
+    case kFifo:
+      return launch<kFifo, ST>(a, st);
+    case kTas:
+      return launch<kTas, ST>(a, st);
+    case kProp:
+      return launch<kProp, ST>(a, st);
+    case kLibasl:
+      return launch<kLibasl, ST>(a, st);
+    case kEdf:
+      return launch<kEdf, ST>(a, st);
+    case kShfl:
+      return launch<kShfl, ST>(a, st);
+    case kDvfsRace:
+      return launch<kDvfsRace, ST>(a, st);
+    case -1:
+      return launch<kMerged, ST>(a, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -838,16 +1297,20 @@ extern "C" {
 
 // Shared memory of one cell, in bytes: the wrapper raises by name where a
 // shape does not fit one block.
-int simstep_cell_bytes(int n, int s, int l) { return 4 * cell_words(n, s, l); }
+int simstep_cell_bytes(int n, int s, int l, int stoch) {
+  return 4 * cell_words(n, s, l, stoch != 0);
+}
 
 // Advance every cell by up to `chunk` events on `stream`.  `operands`
-// holds the 46 device pointers (tables, params, state; the wrapper's
-// _ORDER) into contiguous cell-major tensors, the pol slots null where no
-// policy of the launch has them; `ints` holds n_cells, n, s, l, cap,
-// policy (its id, or -1 for a merged set), chunk, max_events and the
-// long-epoch, wakeup and energy gates; `floats` the AIMD unit factor and
-// the window cap.  Returns the cudaError_t of the launch (0 = success);
-// the caller raises on anything else.
+// holds the 73 device pointers (tables, params, state; the wrapper's
+// _ORDER) into contiguous cell-major tensors, null where the launch's
+// gates and policies do not read them; `ints` holds n_cells, n, s, l,
+// cap, policy (its id, or -1 for a merged set), chunk, max_events, the
+// long-epoch, wakeup and energy gates, then the stochastic instantiation
+// (0 / 1), the wl, open-loop and histogram gates, the bucket count and
+// the preemption, churn and straggler gates; `floats` the AIMD unit
+// factor and the window cap.  Returns the cudaError_t of the launch (0 =
+// success); the caller raises on anything else.
 int simstep_fused_chunk(void* const* operands, const int* ints,
                         const float* floats, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -864,31 +1327,21 @@ int simstep_fused_chunk(void* const* operands, const int* ints,
   a.long_on = ints[8];
   a.wakeup_on = ints[9];
   a.energy_on = ints[10];
+  const bool stoch = ints[11] != 0;
+  a.wl_on = ints[12];
+  a.open_on = ints[13];
+  a.hist_on = ints[14];
+  a.hist_buckets = ints[15];
+  a.preempt_on = ints[16];
+  a.churn_on = ints[17];
+  a.straggle_on = ints[18];
   a.unit_mul = floats[0];
   a.max_window = floats[1];
   a.mod_n = fast_mod(static_cast<unsigned>(a.n));
   a.mod_cap = fast_mod(static_cast<unsigned>(a.cap));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (ints[5]) {
-    case kFifo:
-      return launch<kFifo>(a, st);
-    case kTas:
-      return launch<kTas>(a, st);
-    case kProp:
-      return launch<kProp>(a, st);
-    case kLibasl:
-      return launch<kLibasl>(a, st);
-    case kEdf:
-      return launch<kEdf>(a, st);
-    case kShfl:
-      return launch<kShfl>(a, st);
-    case kDvfsRace:
-      return launch<kDvfsRace>(a, st);
-    case -1:
-      return launch<kMerged>(a, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return stoch ? launch_policy<true>(ints[5], a, st)
+               : launch_policy<false>(ints[5], a, st);
 }
 
 const char* simstep_error_string(int code) {

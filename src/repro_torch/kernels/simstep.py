@@ -5,7 +5,10 @@ CUDA kernel written for Hopper (``csrc/simstep.cu``; its header says what
 bounds it and how the design answers that).  One launch advances every
 sweep cell of a batched ``(SimTables, SimParams, SimState)`` by up to
 ``chunk`` events of the masked step, updating the state tensors in place
-(the latency rings are large, so no copy is made).
+(the latency rings and histograms are large, so no copy is made).  A
+config with a workload, histogram or fault gate on (:func:`stochastic`)
+runs its policy's stochastic instantiation; the others compile none of
+that code.
 
 :func:`fused_chunk` launches the kernel on CUDA tensors and raises on
 anything the kernel does not take; it never falls back.  On CPU tensors it
@@ -35,12 +38,27 @@ from repro_torch.kernels import build
 _I32, _F32, _I64 = torch.int32, torch.float32, torch.int64
 _COLUMNS = ("slo_scale", "dvfs", "race_w", "p_cs", "p_spin", "p_park",
             "p_idle")
+# The stochastic instantiation's operands: tables, params, state.
+_STOCH_TABLES = (("wl_service_col", _I32), ("ft_mask", _F32),
+                 ("hist_log2_lo", _F32), ("hist_inv_log2g", _F32))
+_STOCH_PARAMS = (
+    ("seed", _I32), ("wl_process", _I32), ("wl_service", _I32),
+    ("wl_rate", _F32), ("wl_cv", _F32), ("wl_mix", _F32),
+    ("wl_mix_scale", _F32), ("wl_burst", _F32), ("wl_burst_len", _F32),
+    ("wl_amp", _F32), ("wl_period", _F32), ("preempt_rate", _F32),
+    ("preempt_scale", _F32), ("churn_rate", _F32), ("churn_period", _I32),
+    ("straggle_rate", _F32), ("straggle_scale", _F32),
+    ("hist_warmup", _I32))
+_STOCH_STATE = (("svc_scale", _F32), ("wl_on", _I32), ("arr_t", _I32),
+                ("ep_hist", _I32), ("cs_hist", _I32))
 # Operands a launch passes only where its gates or policies read them
-# (null pointers otherwise), so the fig1 main path passes the 29 it reads.
+# (null pointers otherwise), so the fig1 main path passes the 29 it reads
+# of the 73.
 _OPTIONAL = frozenset((
     "pol_id", "long_prob", "long_scale", "scale", "wakeup", "dvfs",
     "race_w", "p_cs", "p_spin", "p_park", "p_idle", "n_active", "energy",
-    "shfl_bound", "shfl_ctr", "race_bound", "race_ctr"))
+    "shfl_bound", "shfl_ctr", "race_bound", "race_ctr")) | frozenset(
+    k for k, _ in _STOCH_TABLES + _STOCH_PARAMS + _STOCH_STATE)
 _ORDER = (
     ("big", _I32), ("cs_dur", _I32), ("nc_dur", _I32), ("inter", _I32),
     ("seg_lock", _I32), ("slo_scale", _F32), ("dvfs", _F32),
@@ -56,7 +74,8 @@ _ORDER = (
     ("q_head", _I32), ("q_tail", _I32), ("holder", _I32),
     ("prop_ctr", _I32), ("shfl_ctr", _I32), ("race_ctr", _I32),
     ("ep_lat", _F32), ("ep_cnt", _I32), ("cs_lat", _F32), ("cs_cnt", _I32),
-    ("events", _I32), ("energy", _F32))
+    ("events", _I32), ("energy", _F32)) + _STOCH_TABLES + _STOCH_PARAMS + \
+    _STOCH_STATE
 _MERGED = -1                         # the merged sets' instantiation
 _MAX_CORES = 32
 
@@ -68,20 +87,27 @@ def fused_chunk_ref(tables, params, state, chunk: int, cfg):
     return state
 
 
-_TABLE_FIELDS = frozenset(("big", "cs_dur", "nc_dur", "inter", "seg_lock"))
+_TABLE_FIELDS = frozenset(("big", "cs_dur", "nc_dur", "inter", "seg_lock",
+                           "hist_log2_lo", "hist_inv_log2g"))
 _PARAM_FIELDS = frozenset(("slo", "pol_id", "w_big", "prop_n", "n_active",
-                           "horizon", "long_prob", "long_scale", "wakeup"))
+                           "horizon", "long_prob", "long_scale", "wakeup")
+                          + tuple(k for k, _ in _STOCH_PARAMS))
 # Each operand's shape, by its sizes' names (B cells, N cores, S
-# segments, L locks, C ring slots); [B, N] unless listed.
+# segments, L locks, C ring slots, H histogram buckets); [B, N] unless
+# listed.
 _SHAPES = {"cs_dur": "bns", "nc_dur": "bns", "seg_lock": "bs", "key": "b2",
            "q": "bl2n", "q_head": "bl2", "q_tail": "bl2", "holder": "bl",
            "prop_ctr": "bl", "shfl_ctr": "bl", "race_ctr": "bl",
-           "ep_lat": "bnc", "cs_lat": "bnc"}
+           "ep_lat": "bnc", "cs_lat": "bnc", "hist_log2_lo": "b",
+           "hist_inv_log2g": "b", "ep_hist": "bnh", "cs_hist": "bnh"}
+# Operands named apart from their field: the wl_service column (the
+# params have a wl_service too).
+_FIELD = {"wl_service_col": "wl_service"}
 
 
 def _source(k: str) -> tuple:
     """(where operand ``k`` lives, the names of its sizes)."""
-    where = ("col" if k in _COLUMNS else
+    where = ("col" if k in _COLUMNS + ("ft_mask", "wl_service_col") else
              "pm.pol" if k in ("shfl_bound", "race_bound") else
              "st.pol" if k in ("shfl_ctr", "race_ctr") else
              "tables" if k in _TABLE_FIELDS else
@@ -108,7 +134,29 @@ def _needs(cfg) -> frozenset:
         need |= {"dvfs", "race_w", "race_bound", "race_ctr"}
     if "shfl" in names:
         need |= {"shfl_bound", "shfl_ctr"}
+    if simlock._wl_on(cfg):
+        need |= {"seed", "wl_service_col", "scale", "svc_scale", "wl_on",
+                 "wl_process", "wl_service", "wl_rate", "wl_cv", "wl_mix",
+                 "wl_mix_scale", "wl_burst", "wl_burst_len", "wl_amp",
+                 "wl_period"}
+    if cfg.wl_open:
+        need.add("arr_t")
+    if cfg.hist:
+        need |= {"hist_log2_lo", "hist_inv_log2g", "hist_warmup", "ep_hist",
+                 "cs_hist"}
+    for rate, own in (("preempt", ("preempt_scale",)),
+                      ("churn", ("churn_period",)),
+                      ("straggle", ("straggle_scale",))):
+        if getattr(cfg, f"{rate}_rate") > 0.0:
+            need |= {"seed", "ft_mask", f"{rate}_rate", *own}
     return frozenset(need)
+
+
+def stochastic(cfg) -> bool:
+    """Does ``cfg`` run the kernel's stochastic instantiation (a workload,
+    histogram or fault gate on)?"""
+    return bool(simlock._wl_on(cfg) or cfg.hist or cfg.preempt_rate > 0.0
+                or cfg.churn_rate > 0.0 or cfg.straggle_rate > 0.0)
 
 
 # (name, dtype, where, sizes) of every operand, in the kernel's order.
@@ -124,7 +172,8 @@ def _operands(tables, params, state, cfg) -> tuple:
     s = tables.cs_dur.shape[2]
     l = state.holder.shape[1]
     cap = state.ep_lat.shape[2]
-    size = {"b": b, "n": n, "s": s, "l": l, "c": cap, "2": 2}
+    size = {"b": b, "n": n, "s": s, "l": l, "c": cap, "2": 2,
+            "h": state.ep_hist.shape[2]}
     shapes = {}
     src = {"col": tables.col, "pm.pol": params.pol, "st.pol": state.pol,
            "tables": tables, "params": params, "state": state}
@@ -135,7 +184,8 @@ def _operands(tables, params, state, cfg) -> tuple:
         if k in _OPTIONAL and k not in need:
             continue
         x = src[where]
-        x = x.get(k) if isinstance(x, dict) else getattr(x, k)
+        f = _FIELD.get(k, k)
+        x = x.get(f) if isinstance(x, dict) else getattr(x, f)
         if x is None:
             raise ValueError(f"{cfg.policy!r} needs the pol slot {k}")
         shape = shapes.get(dims)
@@ -159,12 +209,14 @@ def _operands(tables, params, state, cfg) -> tuple:
 _SMEM_LIMIT = 232_448                # dynamic shared memory of one block
 
 
-def cell_bytes(n: int, s: int, l: int) -> int:
+def cell_bytes(n: int, s: int, l: int, stoch: bool = False) -> int:
     """Shared memory one cell takes in the kernel (``csrc/simstep.cu``:
     its per-core state and tables, queues, holders, the policies'
-    per-lock counters and 32 pick weights), for ``n`` cores, ``s``
-    segments and ``l`` locks."""
-    return 4 * (13 * n + 2 * n * s + s + 2 * l * n + 8 * l + 32)
+    per-lock counters and 32 pick weights; the stochastic instantiation's
+    per-core service scale, phase bit, arrival, service id and fault
+    mask), for ``n`` cores, ``s`` segments and ``l`` locks."""
+    return 4 * (13 * n + 2 * n * s + s + 2 * l * n + 8 * l + 32
+                + (5 * n if stoch else 0))
 
 
 def instantiation(cfg) -> int:
@@ -207,19 +259,23 @@ def bind(tables, params, state, chunk: int, cfg):
     if not 1 <= n <= _MAX_CORES:
         raise ValueError(f"the simstep kernel runs 1..{_MAX_CORES} cores "
                          f"per cell (one warp lane each), got {n}")
-    if cell_bytes(n, s, l) > _SMEM_LIMIT:
+    stoch = stochastic(cfg)
+    if cell_bytes(n, s, l, stoch) > _SMEM_LIMIT:
         raise ValueError(f"a cell of {n} cores, {s} segments and {l} locks "
-                         f"takes {cell_bytes(n, s, l)} bytes of shared "
-                         f"memory, over one block's {_SMEM_LIMIT}")
+                         f"takes {cell_bytes(n, s, l, stoch)} bytes of "
+                         f"shared memory, over one block's {_SMEM_LIMIT}")
     lib = _lib()
     fn = lib.simstep_fused_chunk
     ptrs = _PTRS()                       # null where not passed
     for k, x in ts.items():
         ptrs[_INDEX[k]] = x.data_ptr()
-    ints = (ctypes.c_int * 11)(
+    ints = (ctypes.c_int * 19)(
         b, n, s, l, cap, instantiation(cfg), int(chunk),
         int(cfg.max_events), int(cfg.long_epoch_prob > 0.0),
-        int(cfg.wakeup_us > 0.0), int(simlock._energy_on(cfg)))
+        int(cfg.wakeup_us > 0.0), int(simlock._energy_on(cfg)), int(stoch),
+        int(simlock._wl_on(cfg)), int(cfg.wl_open), int(cfg.hist),
+        state.ep_hist.shape[2], int(cfg.preempt_rate > 0.0),
+        int(cfg.churn_rate > 0.0), int(cfg.straggle_rate > 0.0))
     # The two f32 constants of Algorithm 2: the unit factor and the cap.
     floats = (ctypes.c_float * 2)(float(unit_factor(cfg.pct)),
                                   float(ticks(cfg.max_window_us)))

@@ -33,6 +33,8 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.core import xla_math as xm
+
 # Arrival processes and service-time distributions: the reference's ids, so
 # a config written for the JAX package names the same ones.
 ARRIVALS = {"closed": 0, "poisson": 1, "mmpp": 2, "diurnal": 3}
@@ -156,9 +158,227 @@ def uniform_block(seed, stream: int, n: int) -> np.ndarray:
     return _uniform_of(stream_key(seed, stream), n).astype(np.float64)
 
 
+def counter_uniform(key: torch.Tensor, *indices) -> torch.Tensor:
+    """U[0, 1) as a pure function of (stream key, indices)."""
+    return uniform(counter_key(key, *indices))
+
+
+#: The lower end of ``jax.random.normal``'s uniform: nextafter(-1, 0) in f32.
+NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+
+
+def normal_of_uniform(f: torch.Tensor) -> torch.Tensor:
+    """``jax.random.normal``'s value from its uniform draw ``f`` in [0, 1):
+    ``u = max(lo, f * (1 - lo) + lo)`` (the f32 ``1 - lo`` is 2.0, so the
+    product is exact), then ``sqrt(2) * erf_inv(u)``."""
+    u = torch.clamp_min(f.to(torch.float32) * 2.0 + NORMAL_LO, NORMAL_LO)
+    return xm.erf_inv(u) * xm.SQRT2
+
+
+def counter_normal(key: torch.Tensor, *indices) -> torch.Tensor:
+    """N(0, 1) as a pure function of (stream key, indices), as
+    ``jax.random.normal`` draws it."""
+    return normal_of_uniform(uniform(counter_key(key, *indices)))
+
+
+def normal_block(seed, stream: int, n: int) -> np.ndarray:
+    """Host block of counter-based normals (element ``i`` is
+    ``counter_normal(stream_key(seed, stream), i)``, as f64)."""
+    f = torch.from_numpy(_uniform_of(stream_key(seed, stream), n))
+    return normal_of_uniform(f).numpy().astype(np.float64)
+
+
+_CORE_KEYS: dict = {}
+
+
+def core_keys(seed: torch.Tensor, stream: int, n: int) -> torch.Tensor:
+    """``counter_key(stream_key(seed, stream), core)`` for every cell's seed
+    (``[B]``) and core ``< n``: ``[B, n, 2]``, the keys a simulator draw
+    folds its event index into.  Cached per seed tensor (a sweep draws
+    from the same keys at every event)."""
+    hit = _CORE_KEYS.get((id(seed), stream, n))
+    if hit is not None and hit[0] is seed:
+        return hit[1]
+    cores = torch.arange(n, dtype=torch.int64, device=seed.device)
+    keys = fold_in(stream_key(seed, stream)[:, None, :], cores[None, :])
+    if len(_CORE_KEYS) > 64:
+        _CORE_KEYS.clear()
+    _CORE_KEYS[(id(seed), stream, n)] = (seed, keys)
+    return keys
+
+
+def event_uniform(seed, stream: int, c, ix, n: int) -> torch.Tensor:
+    """One simulator draw per cell: ``counter_uniform(stream_key(seed,
+    stream), c, ix)`` for ``[B]`` seeds, cores ``c`` and indices ``ix``
+    (``n`` cores a cell)."""
+    return event_uniforms(seed, (stream,), c, ix, n)[:, 0]
+
+
+def event_uniforms(seed, streams: tuple, c, ix, n: int) -> torch.Tensor:
+    """:func:`event_uniform` of several streams at one index, ``[B, K]``
+    (one threefry pass for all of them)."""
+    keys = torch.stack([core_keys(seed, st, n) for st in streams], dim=2)
+    r = torch.arange(keys.shape[0], device=keys.device)
+    return uniform(fold_in(keys[r, c.long()], ix[:, None]))
+
+
 def exp_unit(u: torch.Tensor) -> torch.Tensor:
-    """Exp(1) from a uniform (inverse CDF), in the uniform's dtype."""
-    return -torch.log1p(-u)
+    """Exp(1) from an f32 uniform (inverse CDF): ``-log1p(-u)`` with XLA's
+    f32 ``log1p``, so bit-identical to the reference."""
+    return -xm.log1p(-u.to(torch.float32))
+
+
+def lognormal_unit(z, cv, fused: bool = True) -> torch.Tensor:
+    """Mean-1 lognormal with coefficient of variation ``cv`` from a
+    standard normal ``z``: ``exp(sqrt(s2) z - s2 / 2)``, ``s2 =
+    log1p(cv^2)``.  Compiled, XLA fuses the product into the subtraction
+    (``fused``); the reference's eager host draws do not."""
+    cv = torch.as_tensor(cv, dtype=torch.float32)
+    s2 = xm.log1p(cv * cv)
+    sd = xm.sqrt(s2)
+    if fused:
+        a = xm.fma(sd, z, -(0.5 * s2))
+    else:
+        a = sd * z - 0.5 * s2
+    return xm.exp(a)
+
+
+def bimodal_unit(u, mix, mix_scale, fused: bool = True) -> torch.Tensor:
+    """Mean-1 two-point Get/Put mix: with probability ``mix`` the long
+    mode (``mix_scale`` x the short one), else the short mode."""
+    mix = torch.as_tensor(mix, dtype=torch.float32)
+    mix_scale = torch.as_tensor(mix_scale, dtype=torch.float32)
+    den = xm.fma(mix, mix_scale, 1.0 - mix) if fused else \
+        (1.0 - mix) + mix * mix_scale
+    short = 1.0 / den
+    return torch.where(u < mix, short * mix_scale, short)
+
+
+def _ids(x) -> set:
+    """The ids a tensor of distribution / process ids may hold: those it
+    holds on the CPU, every id on a card (where reading them would stall
+    the stream)."""
+    if not isinstance(x, torch.Tensor):
+        return {int(x)}
+    if x.device.type != "cpu":
+        return set(range(4))
+    return set(torch.unique(x).tolist())
+
+
+def service_unit(u, z, dist, cv, mix, mix_scale) -> torch.Tensor:
+    """Mean-1 service multiplier, branchless over the SERVICES id, as the
+    compiled reference draws it (a sampler no element selects is
+    skipped)."""
+    ids = _ids(dist)
+    out = torch.ones_like(u, dtype=torch.float32)
+    if SERVICES["exp"] in ids:
+        out = torch.where(dist == SERVICES["exp"], exp_unit(u), out)
+    if SERVICES["lognormal"] in ids:
+        out = torch.where(dist == SERVICES["lognormal"],
+                          lognormal_unit(z, cv), out)
+    if SERVICES["bimodal"] in ids:
+        out = torch.where(dist == SERVICES["bimodal"],
+                          bimodal_unit(u, mix, mix_scale), out)
+    return out
+
+
+def phase_flip(u, on, burst_len) -> torch.Tensor:
+    """One MMPP phase step: flip with probability 1 / burst_len."""
+    flip = u < 1.0 / torch.clamp_min(burst_len, 1.0)
+    return torch.where(flip, 1 - on, on)
+
+
+def diurnal_rate(rate, amp, phase01) -> torch.Tensor:
+    """Sinusoidal rate ramp ``rate (1 + amp sin(2 pi phase01))``, floored
+    at 5 % of the mean (the sine is :func:`xla_math.sin`: level 3)."""
+    mod = xm.fma(amp, xm.sin(xm.TWO_PI * phase01), 1.0)
+    return torch.maximum(rate * mod, np.float32(0.05) * rate)
+
+
+def think_gap(u, process, rate, on, burstiness, phase01,
+              amp) -> torch.Tensor:
+    """One inter-arrival / think gap (mean 1 / rate), branchless over the
+    ARRIVALS id, in f32 as the compiled reference draws it (a process no
+    element selects is skipped)."""
+    ids = _ids(process)
+    gap = (1.0 / rate) * torch.ones_like(u)
+    if ids == {ARRIVALS["closed"]}:
+        return gap
+    e1 = exp_unit(u)
+    gap = torch.where(process == ARRIVALS["poisson"], e1 / rate, gap)
+    if ARRIVALS["mmpp"] in ids:
+        r_on, r_off = mmpp_rates(rate, burstiness)
+        gap = torch.where(process == ARRIVALS["mmpp"],
+                          e1 / torch.where(on == 1, r_on, r_off), gap)
+    if ARRIVALS["diurnal"] in ids:
+        gap = torch.where(process == ARRIVALS["diurnal"],
+                          e1 / diurnal_rate(rate, amp, phase01), gap)
+    return gap
+
+
+def epoch_think_u(seed, core, epoch) -> torch.Tensor:
+    return counter_uniform(stream_key(seed, STREAM_THINK), core, epoch)
+
+
+def epoch_service_uz(seed, core, epoch) -> tuple:
+    u = counter_uniform(stream_key(seed, STREAM_SERVICE), core, epoch)
+    z = counter_normal(stream_key(seed, STREAM_SERVICE ^ 0x40000),
+                       core, epoch)
+    return u, z
+
+
+def epoch_phase_u(seed, core, epoch) -> torch.Tensor:
+    return counter_uniform(stream_key(seed, STREAM_PHASE), core, epoch)
+
+
+def epoch_scale_tables(seed, n_cores: int, n_epochs: int, *, process,
+                       rate, cv=1.0, mix=0.0, mix_scale=10.0,
+                       burstiness=1.0, burst_len=8.0, service="det"):
+    """Host reconstruction of the simulator's per-epoch workload draws:
+    ``(think, svc)``, f64 ``[n_cores, n_epochs]``, as the reference's
+    function computes them (its knobs are Python floats, so the mix and
+    MMPP rates are f64 arithmetic and the samplers run op by op, with no
+    fused multiply-add).  The diurnal ramp depends on simulated time and
+    raises, as in the reference."""
+    if process == "diurnal":
+        raise ValueError("diurnal draws depend on simulated time; only "
+                         "counter-pure processes can be reconstructed")
+    pid = ARRIVALS[process]
+    if isinstance(service, str):
+        sid = np.full((n_cores, 1), SERVICES[service])
+    else:
+        if len(service) != n_cores:
+            raise ValueError(f"per-core service list has {len(service)} "
+                             f"entries for {n_cores} cores")
+        sid = np.asarray([SERVICES[s] for s in service])[:, None]
+    cores = torch.arange(n_cores, dtype=torch.int64)[:, None]
+    epochs = torch.arange(n_epochs, dtype=torch.int64)[None, :]
+    u_t = epoch_think_u(seed, cores, epochs)
+    u_s, z_s = epoch_service_uz(seed, cores, epochs)
+    on = np.stack([phase_bits(seed, n_epochs, burst_len, core=int(c))
+                   for c in range(n_cores)]) if n_epochs else \
+        np.zeros((n_cores, 0), np.int32)
+    e1 = exp_unit(u_t)
+    if pid == ARRIVALS["closed"]:
+        think = torch.full_like(e1, np.float32(1.0 / rate))
+    elif pid == ARRIVALS["poisson"]:
+        think = e1 / np.float32(rate)
+    else:
+        r_on, r_off = mmpp_rates(rate, burstiness)
+        think = e1 / torch.from_numpy(
+            np.where(on == 1, r_on, r_off).astype(np.float32))
+    sid = torch.from_numpy(np.broadcast_to(sid, u_s.shape).copy())
+    svc = torch.ones_like(u_s)
+    svc = torch.where(sid == SERVICES["exp"], exp_unit(u_s), svc)
+    svc = torch.where(sid == SERVICES["lognormal"],
+                      lognormal_unit(z_s, cv, fused=False), svc)
+    short = 1.0 / ((1.0 - mix) + mix * mix_scale)
+    svc = torch.where(sid == SERVICES["bimodal"],
+                      torch.where(u_s < np.float32(mix),
+                                  np.float32(short * mix_scale),
+                                  np.float32(short)), svc)
+    return (think.numpy().astype(np.float64),
+            svc.numpy().astype(np.float64))
 
 
 def mmpp_rates(rate, burstiness):
@@ -252,25 +472,23 @@ def arrival_times(spec: ArrivalSpec, duration: float, seed: int,
 def service_times(spec: ServiceSpec, n: int, seed: int,
                   *, stream: int = STREAM_SERVICE) -> np.ndarray:
     """``n`` service times (mean ``spec.mean``), counter-based per index,
-    in f32 as the reference computes them.  ``det`` and ``bimodal`` are
-    bit-identical to it; ``exp`` passes through f32 ``log1p`` and agrees
-    within a few ulps.  ``lognormal`` needs the normal draws, which are
-    not ported yet."""
-    if spec.dist == "lognormal":
-        raise NotImplementedError(
-            "lognormal service times need counter-based normal draws, "
-            "which are not ported to repro_torch yet")
-    u = uniform_block(seed, stream, n).astype(np.float32)
+    in f32 as the reference computes them (its samplers op by op, the
+    bimodal modes in f64 from Python floats): bit-identical to it."""
+    u = torch.from_numpy(uniform_block(seed, stream, n).astype(np.float32))
     if spec.dist == "det":
-        unit = np.ones(n, np.float32)
+        unit = torch.ones(n)
     elif spec.dist == "exp":
-        unit = exp_unit(torch.from_numpy(u)).numpy()
+        unit = exp_unit(u)
+    elif spec.dist == "lognormal":
+        z = torch.from_numpy(normal_block(seed, stream ^ 0x40000, n)
+                             .astype(np.float32))
+        unit = lognormal_unit(z, spec.cv, fused=False)
     else:  # bimodal
         short = 1.0 / ((1.0 - spec.mix) + spec.mix * spec.mix_scale)
-        unit = np.where(u < np.float32(spec.mix),
-                        np.float32(short * spec.mix_scale),
-                        np.float32(short))
-    return spec.mean * unit
+        unit = torch.where(u < np.float32(spec.mix),
+                           np.float32(short * spec.mix_scale),
+                           np.float32(short))
+    return spec.mean * unit.numpy()
 
 
 def client_think_gaps(seed, client: int, n: int,

@@ -65,6 +65,8 @@ def test_port_files_exist():
                  "src/repro_torch/core/policies/shfl.py",
                  "src/repro_torch/core/policies/dvfs_race.py",
                  "src/repro_torch/core/energy.py",
+                 "src/repro_torch/core/xla_math.py",
+                 "src/repro_torch/faults/model.py",
                  "chip_smoke.py"):
         assert want in names
 
@@ -93,6 +95,12 @@ def test_port_imports_with_jax_and_repro_blocked():
             "**energy.amp_power((1,) * 4 + (0,) * 4)), {'policy': ['edf', "
             "'shfl', 'dvfs_race']}, device='cpu')\n"
             "assert int(st.events.min()) > 0 and bool((st.energy > 0).all())\n"
+            "import repro_torch.core.xla_math, repro_torch.faults.model\n"
+            "st, _ = sl.sweep(sl.SimConfig(sim_time_us=200.0, wl_open=True, "
+            "wl_service='lognormal', hist=True, hist_warmup=0, "
+            "preempt_rate=0.1, churn_rate=0.1, straggle_rate=0.1), "
+            "{'policy': ['fifo', 'libasl']}, device='cpu')\n"
+            "assert int(st.events.min()) > 0 and int(st.ep_hist.sum()) > 0\n"
             "import torch\n"
             "import repro_torch.kernels.mlstm_scan, repro_torch.kernels.ops\n"
             "import repro_torch.core.asl_schedule\n"

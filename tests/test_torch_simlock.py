@@ -95,6 +95,11 @@ def test_default_device_needs_cuda(monkeypatch):
             call()
 
 
+# Features the port refused until it ran them: they construct now.
+PORTED = ("wl", "wl_open", "hist", "preempt_rate", "churn_rate",
+          "straggle_rate")
+
+
 @pytest.mark.parametrize("kw, feature", [
     (dict(wl=True), "wl"),
     (dict(wl_open=True), "wl_open"),
@@ -111,6 +116,13 @@ def test_default_device_needs_cuda(monkeypatch):
     (dict(policy="ks_crew"), "ks_crew"),
 ])
 def test_unsupported_features_raise(kw, feature):
+    """Keyed traffic and the ``ks_*`` policies raise, naming the feature;
+    the stochastic workloads, histograms and faults construct and turn
+    the kernel's stochastic instantiation on."""
+    if feature in PORTED:
+        from repro_torch.kernels import simstep
+        assert simstep.stochastic(sl.SimConfig(**kw))
+        return
     with pytest.raises(NotImplementedError, match=feature):
         sl.SimConfig(**kw)
 
@@ -124,9 +136,18 @@ def test_unsupported_features_raise(kw, feature):
     ("straggle_scale", [2.0]),
 ])
 def test_unsupported_axes_raise(axis, values):
+    """The key-shard axes and policies raise; the workload and fault axes
+    sweep, a swept rate or workload knob turning its gate on."""
+    cfg = sl.SimConfig(sim_time_us=100.0)
+    if axis in ("preempt_rate", "arrival_rate", "straggle_scale"):
+        swept = sl.sweep_config(cfg, {axis: values})
+        assert swept.preempt_rate == 0.1 if axis == "preempt_rate" else \
+            swept.wl if axis == "arrival_rate" else swept == cfg
+        st, grid = sl.sweep(cfg, {axis: values}, device="cpu")
+        assert int(st.events[0]) > 0 and list(grid[axis]) == values
+        return
     with pytest.raises(NotImplementedError, match=axis):
-        sl.sweep(sl.SimConfig(sim_time_us=100.0), {axis: values},
-                 device="cpu")
+        sl.sweep(cfg, {axis: values}, device="cpu")
 
 
 def test_bad_sweeps_raise_like_reference():
