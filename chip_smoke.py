@@ -591,6 +591,63 @@ def diurnal_cut(sl) -> tuple:
     return ("diurnal cut", cfg, axes, LOAD_SLO["loadlat"], False)
 
 
+# benchmarks/paper_figs.py's keyshard figure: four zipped 9-cell sweeps
+# (a theta column at 16 locks and a lock-count column at theta 0.99) over
+# 4,096 keys, one per dispatch policy; plain fifo under keys is the CRCW
+# baseline.
+KEYSHARD_THETAS = (0.0, 0.5, 0.9, 0.99, 1.2)
+KEYSHARD_LOCKS = (1, 2, 4, 8)
+KEYSHARD_POLICIES = (("fifo", "crcw"), ("ks_erew", "erew"),
+                     ("ks_crew", "crew"), ("ks_jbsq", "jbsq"))
+KEYSHARD_KEYS, KEYSHARD_NLOCKS = 4096, 16
+# The horizons of phase 3d's kernel-against-plain cuts: the plain step
+# costs 10-30 ms a step on the card with the key draws, so they are cut
+# to keep the phase near a minute.
+KEY_CUT_US = 1500.0               # the merged keyed cut's
+KEY_OPEN_CUT_US = 500.0           # the open-loop keyed cut's
+KEYS_OFF_US = 1000.0              # the ks_* policies' runs with keys off
+
+
+def keyshard_axes() -> dict:
+    """``paper_figs.keyshard``'s zipped theta / lock-count columns."""
+    return {"zipf_theta": list(KEYSHARD_THETAS)
+            + [0.99] * len(KEYSHARD_LOCKS),
+            "n_locks": [KEYSHARD_NLOCKS] * len(KEYSHARD_THETAS)
+            + list(KEYSHARD_LOCKS)}
+
+
+def keyshard_grids(sl) -> list:
+    """The keyshard figure's grids as (name, cfg, axes, slo_us, product),
+    for either package's ``simlock``: one per policy, full length."""
+    return [(f"keyshard {label}",
+             fig_cfg(sl, pol, n_locks=KEYSHARD_NLOCKS, n_keys=KEYSHARD_KEYS),
+             keyshard_axes(), 1e9, False)
+            for pol, label in KEYSHARD_POLICIES]
+
+
+def keyshard_cuts(sl) -> list:
+    """The keyed cuts phase 3d holds the kernel to the plain step on: the
+    figure's 36 cells as one merged set (1,500 us), and an open loop
+    (``wl_open``, Poisson arrivals, exponential service) of fifo and
+    ks_crew merged at two loads (500 us)."""
+    pols = tuple(p for p, _ in KEYSHARD_POLICIES)
+    ax = keyshard_axes()
+    cfg = fig_cfg(sl, "fifo", sim_time_us=KEY_CUT_US,
+                  n_locks=KEYSHARD_NLOCKS, n_keys=KEYSHARD_KEYS,
+                  policy_set=pols)
+    merged = {"policy": [p for p in pols for _ in ax["n_locks"]],
+              **{k: v * len(pols) for k, v in ax.items()}}
+    open_cfg = fig_cfg(sl, "fifo", sim_time_us=KEY_OPEN_CUT_US,
+                       n_locks=KEYSHARD_NLOCKS, n_keys=KEYSHARD_KEYS,
+                       wl_open=True, wl=True, wl_process="poisson",
+                       wl_service="exp", policy_set=("fifo", "ks_crew"))
+    open_axes = {"policy": ["fifo", "fifo", "ks_crew", "ks_crew"],
+                 "arrival_rate": [openloop_rate(f) for f in (0.6, 1.1) * 2],
+                 "seed": [0, 1, 2, 3]}
+    return [("keyshard merged cut", cfg, merged, 1e9, False),
+            ("keyshard open cut", open_cfg, open_axes, 1e9, False)]
+
+
 def full_digest(st) -> str:
     """sha256 over every leaf of a numpy state (reference dtypes), the
     pol slots included, in field order."""
@@ -605,9 +662,10 @@ def full_digest(st) -> str:
 
 
 # full_digest of the JAX package's final state of each figure grid.
-# tests/test_torch_simstep_figs.py recomputes them with JAX, but for the
-# load grids (loadlat_sweep ... chaos dvfs_race), recorded once from the
-# JAX package: 10 grids, 10.4M events, about 80 s on a CPU.
+# tests/test_torch_simstep_figs.py recomputes them with JAX (the keyshard
+# grids: tests/test_torch_figure_digests_keys.py), but for the load grids
+# (loadlat_sweep ... chaos dvfs_race), recorded once from the JAX package:
+# 10 grids, 10.4M events, about 80 s on a CPU.
 FIGURE_DIGESTS = {
     "bench1 merged, phase 1":
         "51eea560a1233c20002c568c3322769f1cdb5a8a1a2307de9959c46006126bd7",
@@ -667,6 +725,14 @@ FIGURE_DIGESTS = {
         "6d58c6b11c680199988565c5e86b6e700633562b55c961a905ea77c1ab9114b5",
     "chaos dvfs_race":
         "69e689ba0c135a89592f3240e9fd65988064b1809b5cca5c417e852efbfaf32d",
+    "keyshard crcw":
+        "935761fa6fab1a1da9e16273e0cc87c2cbaf4396aaba49c2cd60cb222bff114e",
+    "keyshard erew":
+        "393d38dd6f0b4ad419722434457a2af20884cfbb4ae8a756c33b5808eda18573",
+    "keyshard crew":
+        "d3da3453b6562379cabf5a4b18e29d125b3d007cb0848e8d816f888d24d5710d",
+    "keyshard jbsq":
+        "341c61b142b4c8b76f76ab8a536745a57f4aa9271a341c2df757d9d44069f639",
 }
 # full_digest of the JAX package's final state of each load grid's cut
 # (cut_grid) and of FEATURE_CUT.  tests/test_torch_figure_digests_load.py
@@ -684,6 +750,15 @@ CUT_DIGESTS = {
         "278ae00bc5b90087f3cf49f0944178504c0427bc53765192dc167af65199ff4d",
     "features cut":
         "ad8fc2d9ee4120d6a99a5ebad69476f050ca2a6125e9222f04bdfee44bf90598",
+}
+# full_digest of the JAX package's final state of each keyed cut
+# (keyshard_cuts).  tests/test_torch_figure_digests_keys.py recomputes
+# them with JAX.
+KEYSHARD_CUT_DIGESTS = {
+    "keyshard merged cut":
+        "e3ec0223138db618ae2161bb7673d8cf3c151f64482adee8a4e6f8d75bc5241b",
+    "keyshard open cut":
+        "ea6005fabaa410bbde6e8b9a7ce135a5697426d847fcf018391c31b5a210e716",
 }
 
 
@@ -713,7 +788,8 @@ def instantiation(line: str) -> str:
     """The kernel and template arguments that ptxas's "Compiling entry
     function" line names, readable: ``dq(f32, 256, 64, 32)`` for
     ``...9dq_kernelIfLi256ELi64ELi32EE...``, ``dkv_reduce()`` for a
-    kernel that is no template."""
+    kernel that is no template; ``keyed`` marks ``fused_chunk``'s
+    overload that takes ``ArgsK``."""
     import re
     m = re.search(r"(?<=[0-9])([a-z_]+)_kernel(?:I(.*?)EEv)?", line)
     if not m:
@@ -722,6 +798,8 @@ def instantiation(line: str) -> str:
         "Lb1", "stochastic").replace("Lb0", "det").replace(
         "Li", "").replace("E", ",")
     args = re.sub(r"^f", "f32,", args)
+    if "5ArgsK" in line:
+        args += ",keyed"
     return m.group(1) + "(" + ", ".join(a for a in args.split(",") if a) \
         + ")"
 
@@ -866,7 +944,8 @@ def launch_bound(tb, pm, cfg, simstep, before, after, launches) -> tuple:
     and writes one 4-byte count.  The operations (argmin compares and handler
     steps per event) take far less time than the bytes."""
     ts, _ = simstep._operands(tb, pm, before, cfg)
-    state = set(before._fields) | {"shfl_ctr", "race_ctr"}
+    state = set(before._fields) | {"shfl_ctr", "race_ctr", "erew_ctr",
+                                   "crew_ctr", "jbsq_ctr"}
     skip = {"ep_lat", "cs_lat", "ep_hist", "cs_hist"}
     if not (cfg.p_cs or cfg.p_spin or cfg.p_park or cfg.p_idle):
         skip |= {"energy", "p_cs", "p_spin", "p_park", "p_idle"}
@@ -1133,7 +1212,8 @@ def cut_run(sl, simstep, cut, level3=False) -> None:
     """A load grid's cut (:func:`cut_grid`, :func:`feature_cut`) through
     the kernel and through the plain step on the card: every leaf equal,
     and the kernel's final state equal to the JAX package's
-    (``CUT_DIGESTS``); a ``level3`` cut (:func:`diurnal_cut`) has no
+    (``CUT_DIGESTS``, ``KEYSHARD_CUT_DIGESTS``); a ``level3`` cut
+    (:func:`diurnal_cut`) has no
     JAX digest and is held to the plain step alone."""
     name, cfg, axes, slo, product = cut
     cfg = sl.sweep_config(cfg, axes)
@@ -1145,7 +1225,7 @@ def cut_run(sl, simstep, cut, level3=False) -> None:
         cfg, tb, pm, ref, chunk_fn=simstep.fused_chunk_ref))
     bad, _ = leaf_diff(st, ref)
     got = full_digest(sl.to_reference(st))
-    same = level3 or got == CUT_DIGESTS[name]
+    same = level3 or got == {**CUT_DIGESTS, **KEYSHARD_CUT_DIGESTS}[name]
     print(f"load {name}: {st.events.numel()} cells, {int(st.events.sum())} "
           f"events, kernel {kernel_ms / 1e3:.3f} s, plain {plain_ms / 1e3:.1f}"
           f" s, differing leaves: {bad or 'none'}; " + (
@@ -1221,6 +1301,52 @@ def phase_load_figures(sl, simstep) -> dict:
     if launches <= 0 or launches != sum(r["launches"] for r in
                                         rows.values()):
         raise AssertionError("the load grids' launches do not add up")
+    return {"launches": launches, "grids": rows}
+
+
+def phase_keyshard(sl, simstep) -> dict:
+    """Phase 3d: keyed traffic.  Kernel against plain step on the card,
+    every leaf: the keyed cuts (each held to the JAX package's final
+    state, ``KEYSHARD_CUT_DIGESTS``) and each ks_* policy with keys off on
+    the fig1 and Bench-1 programs.  Then ``paper_figs.keyshard`` at full length through
+    ``sweep``'s two parts, each grid held to the JAX package's final state,
+    with the ``fused_chunk`` counter set to 0 just before and read just
+    after; each cell's throughput and epoch P99 by label."""
+    t0 = time.time()
+    for cut in keyshard_cuts(sl):
+        cut_run(sl, simstep, cut)
+    axes = {"n_cores": [4, 6, 8]}
+    for pol, knob in (("ks_erew", "erew_bound"), ("ks_crew", "crew_bound"),
+                      ("ks_jbsq", "jbsq_k")):
+        for prog, kw in (("fig1", FIG1), ("bench1", BENCH1)):
+            parity_case(sl, simstep, f"{pol}/{prog} keys off", sl.SimConfig(
+                policy=pol, sim_time_us=KEYS_OFF_US, **kw),
+                {**axes, knob: [1, 4]})
+    cuts_s = time.time() - t0
+    print(f"keyshard cuts: {cuts_s:.1f} s", flush=True)
+    simstep.fused_chunk.launches = 0
+    rows = {}
+    for name, cfg, axes, slo, product in keyshard_grids(sl):
+        rows[name], summ = figure_run(sl, simstep, name, cfg, axes, slo,
+                                      product)
+        for c in summ:
+            print(f"  {name}/th{float(c['zipf_theta']):g}"
+                  f"_l{int(c['n_locks'])}: throughput_cs_per_s "
+                  f"{c['throughput_cs_per_s']:.1f} ep_p99_all_us "
+                  f"{c['ep_p99_all_us']:.2f}", flush=True)
+    launches = simstep.fused_chunk.launches
+    total_ev = sum(r["events"] for r in rows.values())
+    total_s = sum(r["wall_s"] for r in rows.values())
+    card = sum(r["card_ms"] for r in rows.values())
+    print(f"keyshard figure: {len(rows)} grids, "
+          f"{sum(r['cells'] for r in rows.values())} cells, {total_ev} "
+          f"events in {total_s:.3f} s ({total_ev / total_s:.0f} events/s), "
+          f"{launches} fused_chunk launches, {card:.2f} ms on the card "
+          f"({card / launches:.4f} ms a launch); phase 3d "
+          f"{time.time() - t0:.1f} s", flush=True)
+    if launches <= 0 or launches != sum(r["launches"] for r in
+                                        rows.values()):
+        raise AssertionError("the keyshard grids' launches do not add up")
     return {"launches": launches, "grids": rows}
 
 
@@ -3159,6 +3285,7 @@ def main() -> int:
         main_run = phase_main(sl, simstep)
         figures = phase_figures(sl, simstep)
         load = phase_load_figures(sl, simstep)
+        keyshard = phase_keyshard(sl, simstep)
         mlstm = phase_mlstm(ms, build)
         serve_run = phase_serve(ms)
         phase_model(ms)
@@ -3298,11 +3425,13 @@ def main() -> int:
             row["launches_by_path"] = {
                 "fig1 main path": main_run["launches"],
                 "figure grids": figures["launches"],
-                "load figures": load["launches"]}
+                "load figures": load["launches"],
+                "keyshard figure": keyshard["launches"]}
             row["figures"] = {k: {f: r[f] for f in (
                 "instantiation", "cells", "events", "launches", "wall_s",
                 "events_per_s", "ms", "bound_ms", "bound_by")}
-                for k, r in {**figures["grids"], **load["grids"]}.items()}
+                for k, r in {**figures["grids"], **load["grids"],
+                             **keyshard["grids"]}.items()}
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

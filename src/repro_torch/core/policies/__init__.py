@@ -2,9 +2,7 @@
 
 Registration order fixes the integer policy ids, and the port keeps the
 JAX package's: ``fifo=0, tas=1, prop=2, libasl=3, edf=4, shfl=5,
-dvfs_race=6``.  The key-sharded policies (``ks_*``, ids 7-9 there) are
-not ported yet; naming one raises ``NotImplementedError`` in
-:mod:`repro_torch.core.simlock`.
+dvfs_race=6, ks_erew=7, ks_crew=8, ks_jbsq=9``.
 """
 
 from __future__ import annotations
@@ -47,7 +45,9 @@ class MergedPolicy(LockPolicy):
     member id)``.  Hooks are fully conditional, so a masked-off member
     commits nothing (not even a key split) and each cell runs exactly as
     under its own policy.  Param and state slots are the members' union
-    by name; ``uses_standby`` is any member's."""
+    by name; ``uses_standby`` and ``uses_rw`` are any member's (the engine
+    draws the read/write uniform only in the cells of a member that reads
+    it, :meth:`rw_member_ids`)."""
 
     def __init__(self, names):
         ids = policy_ids()
@@ -55,6 +55,7 @@ class MergedPolicy(LockPolicy):
         self.members = tuple((ids[n], get(n)) for n in self.names)
         self.name = "+".join(self.names)
         self.uses_standby = any(m.uses_standby for _, m in self.members)
+        self.uses_rw = any(m.uses_rw for _, m in self.members)
         self.param_slots = tuple(dict.fromkeys(
             s for _, m in self.members for s in m.param_slots))
         self.table_slots = tuple(dict.fromkeys(
@@ -68,6 +69,10 @@ class MergedPolicy(LockPolicy):
                     raise ValueError(
                         f"policy set {self.names} maps sweep axis "
                         f"{axis!r} onto two different slots")
+
+    def rw_member_ids(self) -> tuple:
+        """Ids of the members that read the per-epoch read/write uniform."""
+        return tuple(pid for pid, m in self.members if m.uses_rw)
 
     def init_params(self, cfg) -> dict:
         out = {}
@@ -126,6 +131,7 @@ from repro_torch.core.policies import libasl as _libasl  # noqa: E402,F401
 from repro_torch.core.policies import edf as _edf        # noqa: E402,F401
 from repro_torch.core.policies import shfl as _shfl      # noqa: E402,F401
 from repro_torch.core.policies import dvfs_race as _dvfs  # noqa: E402,F401
+from repro_torch.core.policies import keyshard as _ks    # noqa: E402,F401
 
 __all__ = ["LockPolicy", "REGISTRY", "register", "get", "policy_ids",
            "MergedPolicy", "merged"]

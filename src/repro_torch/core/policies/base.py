@@ -110,14 +110,20 @@ def weighted_pick(key: torch.Tensor, weights: torch.Tensor):
     return pick, total > 0.0
 
 
-def lock_of(st, tb, c) -> torch.Tensor:
-    """The lock core ``c`` currently contends: its segment's lock."""
+def lock_of(st, cfg, tb, c) -> torch.Tensor:
+    """The lock core ``c`` currently contends: with keyed traffic
+    (``cfg.n_keys > 0``) its epoch's Zipf-drawn lock (``st.cur_lock``),
+    else its segment's lock."""
     r = rows(st.seg)
+    if cfg.n_keys > 0:
+        return st.cur_lock[r, c].long()
     return tb.seg_lock[r, st.seg[r, c].long()].long()
 
 
-def lock_vec(st, tb) -> torch.Tensor:
+def lock_vec(st, cfg, tb) -> torch.Tensor:
     """Per-core lock ids ``[B, N]`` — the vectorized :func:`lock_of`."""
+    if cfg.n_keys > 0:
+        return st.cur_lock
     return torch.gather(tb.seg_lock, 1, st.seg.long())
 
 
@@ -137,7 +143,7 @@ def grant(st, cfg, tb, pm, cond, c, t, wakeup: bool = False) -> None:
     r = rows(st.seg)
     c_safe = torch.clamp_min(c, 0)
     s = st.seg[r, c_safe].long()
-    l = tb.seg_lock[r, s].long()
+    l = lock_of(st, cfg, tb, c_safe)
     dur = tb.cs_dur[r, c_safe, s]
     if cfg.wl or cfg.wl_open:
         dur = torch.clamp_min(
@@ -171,19 +177,20 @@ def park(st, cond, c, new_phase) -> None:
     put(st.t_ready, (c,), INF, cond)
 
 
-def waiting_mask(st, tb, l, phase=QUEUED) -> torch.Tensor:
+def waiting_mask(st, cfg, tb, l, phase=QUEUED) -> torch.Tensor:
     """``[B, N]``: cores parked in ``phase`` on lock ``l`` — the waiter set
-    the queue-less policies (edf, shfl, dvfs_race) scan at a release."""
-    return (st.phase == phase) & (lock_vec(st, tb) == l[:, None])
+    the queue-less policies (edf, shfl, dvfs_race, ks_*) scan at a
+    release."""
+    return (st.phase == phase) & (lock_vec(st, cfg, tb) == l[:, None])
 
 
 def queueless_acquire(st, cfg, tb, pm, c, t, cond) -> None:
-    """The queue-less acquire (edf, shfl, dvfs_race): grab when the lock
-    is free and nobody waits on it, else park in QUEUED for the
+    """The queue-less acquire (edf, shfl, dvfs_race, ks_*): grab when the
+    lock is free and nobody waits on it, else park in QUEUED for the
     releaser's scan."""
-    l = lock_of(st, tb, c)
+    l = lock_of(st, cfg, tb, c)
     free = st.holder[rows(l), l] == -1
-    can_grab = free & ~waiting_mask(st, tb, l).any(dim=1)
+    can_grab = free & ~waiting_mask(st, cfg, tb, l).any(dim=1)
     grant(st, cfg, tb, pm, can_grab & cond, c, t)
     park(st, ~can_grab & cond, c, QUEUED)
 
@@ -208,6 +215,9 @@ class LockPolicy:
     name: str = None
     #: True iff the policy parks cores in STANDBY.
     uses_standby: bool = False
+    #: True iff the policy reads the per-epoch read/write uniform
+    #: (``SimState.cur_rw``): only then do keyed runs draw it.
+    uses_rw: bool = False
     #: SimParams fields this policy reads.
     param_slots: tuple = ()
     #: SimTables slots this policy reads.
@@ -217,9 +227,11 @@ class LockPolicy:
     #: sweep-axis name -> SimParams field (policy knobs as batch axes).
     sweep_axes: dict = {}
     #: host-side admission-scheduler analogue (a
-    #: :mod:`repro_torch.core.asl_schedule` key); None when the policy
-    #: has no host counterpart.
+    #: :mod:`repro_torch.core.asl_schedule` key) and fleet-dispatch
+    #: analogue (the reference's ``repro.serving.dispatch`` policy name);
+    #: None when the policy has no host counterpart.
     host_scheduler: str = None
+    host_dispatch: str = None
 
     def init_params(self, cfg) -> dict:
         """Policy-owned knobs -> ``SimParams.pol`` (numpy scalars, read

@@ -56,7 +56,7 @@ class DvfsRacePolicy(LockPolicy):
         queueless_acquire(st, cfg, tb, pm, c, t, cond)
 
     def pick_next(self, st, cfg, tb, pm, l, t, cond):
-        waiting = waiting_mask(st, tb, l)
+        waiting = waiting_mask(st, cfg, tb, l)
         score = torch.where(waiting, race_score(tb), -1.0)
         tie = waiting & (score == score.amax(dim=1, keepdim=True))
         fast = torch.argmin(torch.where(tie, st.attempt_t, INF), dim=1)

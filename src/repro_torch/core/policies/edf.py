@@ -28,7 +28,7 @@ class EdfPolicy(LockPolicy):
         queueless_acquire(st, cfg, tb, pm, c, t, cond)
 
     def pick_next(self, st, cfg, tb, pm, l, t, cond):
-        waiting = waiting_mask(st, tb, l)
+        waiting = waiting_mask(st, cfg, tb, l)
         slo_t = torch.clamp_max(pm.slo[:, None] * tb.col["slo_scale"],
                                 float(ticks(cfg.max_window_us))
                                 ).to(torch.int32)

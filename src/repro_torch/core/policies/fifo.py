@@ -12,10 +12,11 @@ from repro_torch.core.policies.base import (LockPolicy, QUEUED, deq, enq,
 class FifoPolicy(LockPolicy):
     name = "fifo"
     host_scheduler = "fifo"
+    host_dispatch = "fair"
     state_slots = ("q", "q_head", "q_tail")
 
     def on_acquire(self, st, cfg, tb, pm, c, t, cond):
-        l = lock_of(st, tb, c)
+        l = lock_of(st, cfg, tb, c)
         can_grab = (st.holder[rows(l), l] == -1) & (qlen(st, l, 0) == 0)
         wait = ~can_grab & cond
         grant(st, cfg, tb, pm, can_grab & cond, c, t)

@@ -18,6 +18,7 @@ from repro_torch.core.policies.base import (LockPolicy, QUEUED, STANDBY,
 class LibASLPolicy(LockPolicy):
     name = "libasl"
     host_scheduler = "asl"
+    host_dispatch = "asl"
     uses_standby = True
     param_slots = ("slo", "unit0")
     table_slots = ("big", "col.slo_scale")
@@ -25,7 +26,7 @@ class LibASLPolicy(LockPolicy):
 
     def on_acquire(self, st, cfg, tb, pm, c, t, cond):
         r = rows(c)
-        l = lock_of(st, tb, c)
+        l = lock_of(st, cfg, tb, c)
         is_big = tb.big[r, c] == 1
         can_grab = (st.holder[r, l] == -1) & (qlen(st, l, 0) == 0)
         wait = ~can_grab & cond
@@ -42,7 +43,7 @@ class LibASLPolicy(LockPolicy):
 
     def on_standby_expiry(self, st, cfg, tb, pm, c, t, cond):
         """Reorder window expired -> enqueue FIFO (Alg.1 line 16)."""
-        l = lock_of(st, tb, c)
+        l = lock_of(st, cfg, tb, c)
         free = (st.holder[rows(l), l] == -1) & (qlen(st, l, 0) == 0)
         wait = ~free & cond
         grant(st, cfg, tb, pm, free & cond, c, t)
@@ -67,7 +68,7 @@ class LibASLPolicy(LockPolicy):
         grant(st, cfg, tb, pm, nonempty, cq, t, wakeup=True)
         # Queue empty -> a standby competitor may grab the free lock.  The
         # key advances on every release, even when the queue served.
-        standby = (st.phase == STANDBY) & (lock_vec(st, tb) == l[:, None])
+        standby = (st.phase == STANDBY) & (lock_vec(st, cfg, tb) == l[:, None])
         sub = advance_key(st, cond)
         pick, any_standby = weighted_pick(sub, standby.to(torch.float32))
         grant(st, cfg, tb, pm, ~nonempty & any_standby & cond, pick, t)

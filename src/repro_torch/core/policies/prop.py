@@ -21,7 +21,7 @@ class PropPolicy(LockPolicy):
 
     def on_acquire(self, st, cfg, tb, pm, c, t, cond):
         r = rows(c)
-        l = lock_of(st, tb, c)
+        l = lock_of(st, cfg, tb, c)
         can_grab = ((st.holder[r, l] == -1) & (qlen(st, l, 0) == 0)
                     & (qlen(st, l, 1) == 0))
         wait = ~can_grab & cond

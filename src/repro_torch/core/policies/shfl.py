@@ -40,7 +40,7 @@ class ShflPolicy(LockPolicy):
         queueless_acquire(st, cfg, tb, pm, c, t, cond)
 
     def pick_next(self, st, cfg, tb, pm, l, t, cond):
-        waiting = waiting_mask(st, tb, l)
+        waiting = waiting_mask(st, cfg, tb, l)
         head = torch.argmin(torch.where(waiting, st.attempt_t, INF), dim=1)
         big_wait = waiting & (tb.big == 1)
         big_head = torch.argmin(torch.where(big_wait, st.attempt_t, INF),

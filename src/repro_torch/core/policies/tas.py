@@ -18,18 +18,19 @@ from repro_torch.core.policies.base import (SPIN, LockPolicy, advance_key,
 class TasPolicy(LockPolicy):
     name = "tas"
     host_scheduler = "greedy"
+    host_dispatch = "fast-only"
     param_slots = ("w_big",)
     table_slots = ("big",)
     sweep_axes = {"w_big": "w_big"}
 
     def on_acquire(self, st, cfg, tb, pm, c, t, cond):
-        l = lock_of(st, tb, c)
+        l = lock_of(st, cfg, tb, c)
         free = st.holder[rows(l), l] == -1
         grant(st, cfg, tb, pm, free & cond, c, t)
         park(st, ~free & cond, c, SPIN)
 
     def pick_next(self, st, cfg, tb, pm, l, t, cond):
-        spinning = (st.phase == SPIN) & (lock_vec(st, tb) == l[:, None])
+        spinning = (st.phase == SPIN) & (lock_vec(st, cfg, tb) == l[:, None])
         # The key advances on every release, whether or not anyone spins.
         sub = advance_key(st, cond)
         w = torch.where(tb.big == 1, pm.w_big[:, None],

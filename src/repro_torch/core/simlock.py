@@ -20,20 +20,21 @@ in the hand-written kernel :func:`repro_torch.kernels.simstep.fused_chunk`
 (``chunk`` events per launch, launched until no cell is live); on the CPU
 the same wrapper runs :func:`_step`, the plain PyTorch version.
 
-Scope: the paper's experiments without keyed traffic, under the seven
-table policies (``fifo``, ``tas``, ``prop``, ``libasl``, ``edf``,
-``shfl``, ``dvfs_race``): merged policy sets (a ``policy`` axis),
-program and column table axes, long epochs, the blocking-lock wakeup
-cost, the energy model, stochastic workloads closed and open loop
-(``wl``, ``wl_open``), streaming histograms (``hist``) and fault
-injection (holder preemption, core churn, straggler spikes).  The draws
-go through XLA's own f32 ``log1p`` / ``exp`` / ``erf_inv`` / ``log2``
-(:mod:`repro_torch.core.xla_math`), so every ``SimState`` leaf is
-bit-identical to the JAX package's for the same config
-(``tests/test_torch_simlock*.py``); the diurnal ramp's ``sin`` alone may
-differ by an ulp.  Keyed traffic (``n_keys``) raises
-``NotImplementedError`` naming it.  Entry points take ``device=None``,
-which means the CUDA device; pass ``device="cpu"`` for the plain version.
+Scope: the reference's simulator under its ten policies (``fifo``,
+``tas``, ``prop``, ``libasl``, ``edf``, ``shfl``, ``dvfs_race`` and the
+key-sharded ``ks_erew``, ``ks_crew``, ``ks_jbsq``): merged policy sets (a
+``policy`` axis), program and column table axes, long epochs, the
+blocking-lock wakeup cost, the energy model, stochastic workloads closed
+and open loop (``wl``, ``wl_open``), streaming histograms (``hist``),
+fault injection (holder preemption, core churn, straggler spikes) and
+key-sharded traffic (``n_keys``: each epoch's lock a Zipf-drawn key's
+bucket, the ``n_keys`` / ``zipf_theta`` / ``n_locks`` axes).  The draws
+go through XLA's own f32 ``log1p`` / ``exp`` / ``erf_inv`` / ``log2`` and
+glibc's ``powf`` (:mod:`repro_torch.core.xla_math`), so every
+``SimState`` leaf is bit-identical to the JAX package's for the same
+config (``tests/test_torch_simlock*.py``); the diurnal ramp's ``sin``
+alone may differ by an ulp.  Entry points take ``device=None``, which
+means the CUDA device; pass ``device="cpu"`` for the plain version.
 """
 
 from __future__ import annotations
@@ -63,21 +64,10 @@ from repro_torch.device import resolve as _device
 
 POLICIES = policies.policy_ids()
 
-# Policies of the JAX package that this port does not run yet.
-_LATER_POLICIES = ("ks_erew", "ks_crew", "ks_jbsq")
-
-
-def _not_ported(name: str) -> None:
-    if name in _LATER_POLICIES:
-        raise NotImplementedError(
-            f"lock policy {name!r} is not ported to repro_torch yet; "
-            f"ported: {sorted(POLICIES)}")
-
 
 def _validate_config(cfg) -> None:
     """Reject NaN / negative / out-of-range fields and unknown policy
     names at construction — the reference's checks, field for field."""
-    _not_ported(cfg.policy)
     if cfg.policy not in POLICIES:
         import difflib
         hint = difflib.get_close_matches(cfg.policy, POLICIES, n=1)
@@ -87,7 +77,6 @@ def _validate_config(cfg) -> None:
             + (f" -- did you mean {hint[0]!r}?" if hint else ""))
     if cfg.policy_set:
         for p in cfg.policy_set:
-            _not_ported(p)
             if p not in POLICIES:
                 raise ValueError(
                     f"policy_set entry {p!r} is not registered; "
@@ -180,14 +169,6 @@ def _validate_config(cfg) -> None:
                          f"got {cfg.seg_lock!r}")
 
 
-def _check_slice(cfg) -> None:
-    """Name every feature of ``cfg`` that this port does not run yet."""
-    if cfg.n_keys > 0:
-        raise NotImplementedError(
-            "repro_torch does not run these SimConfig features yet: "
-            "n_keys > 0 (key-sharded traffic)")
-
-
 @dataclasses.dataclass(frozen=True)
 class SimConfig:
     """Static simulator configuration — the reference's fields, so a config
@@ -261,7 +242,6 @@ class SimConfig:
 
     def __post_init__(self):
         _validate_config(self)
-        _check_slice(self)
 
     @property
     def policy_id(self) -> int:
@@ -286,6 +266,57 @@ def _energy_on(cfg: SimConfig) -> bool:
     """The energy gate: is any per-core power table set?  (All-zero
     tables turn it on too and integrate exact zeros.)"""
     return bool(cfg.p_cs or cfg.p_spin or cfg.p_park or cfg.p_idle)
+
+
+def _ks_on(cfg: SimConfig) -> bool:
+    """The key-shard gate: is each epoch's lock drawn from the Zipf key
+    stream (rather than the segment program's)?"""
+    return cfg.n_keys > 0
+
+
+def _rw_draw_gate(cfg: SimConfig, pm):
+    """Does a cell draw the per-epoch read/write uniform?  A single policy
+    gives its ``uses_rw`` (a Python bool); a merged set a ``[B]`` mask of
+    the cells whose member reads it, so a fifo cell beside ks_crew keeps
+    ``cur_rw == 1.0`` as under its own policy."""
+    if not cfg.policy_set:
+        return policies.get(cfg.policy).uses_rw
+    ids = _active_policy(cfg).rw_member_ids()
+    if not ids:
+        return False
+    m = pm.pol_id == ids[0]
+    for pid in ids[1:]:
+        m = m | (pm.pol_id == pid)
+    return m
+
+
+_ZETA2: dict = {}
+
+
+def _zeta2(pm) -> torch.Tensor:
+    """Each cell's ``1 + 0.5 ** theta`` (:func:`keys.zipf_zeta2`), cached
+    per ``ks_theta`` tensor: every key draw of a sweep uses it."""
+    hit = _ZETA2.get(id(pm.ks_theta))
+    if hit is not None and hit[0] is pm.ks_theta:
+        return hit[1]
+    z = wlk.zipf_zeta2(pm.ks_theta)
+    if len(_ZETA2) > 64:
+        _ZETA2.clear()
+    _ZETA2[id(pm.ks_theta)] = (pm.ks_theta, z)
+    return z
+
+
+def _draw_locks(pm, u) -> torch.Tensor:
+    """The lock of each uniform ``u`` (``[B]`` or ``[B, N]``) under its
+    cell's Zipf constants: the key's bucket, as the compiled reference
+    draws it."""
+    def col(x):
+        return x if u.dim() == 1 else x[:, None]
+
+    key = wlk.zipf_key(u, col(pm.ks_keys), None, col(pm.ks_zeta),
+                       col(pm.ks_eta), col(pm.ks_alpha),
+                       zeta2=col(_zeta2(pm)))
+    return wlk.key_to_lock(key, col(pm.ks_locks))
 
 
 class SimTables(NamedTuple):
@@ -548,6 +579,21 @@ def _init_state(cfg: SimConfig, tb: SimTables, pm: SimParams,
         arr0 = zeros.clone()
         phase0 = zeros.clone()
         ready0 = torch.where(active, nc0 + stagger, inf)
+    cur_lock0 = zeros.clone()
+    cur_rw0 = torch.ones((b, n), **f32)
+    if _ks_on(cfg):
+        # Epoch-0 key (and read/write) draws, pure in (seed, core, 0); an
+        # open loop draws index 0 again at its first arrival.
+        def u0(stream):
+            keys = wlg.core_keys(pm.seed, stream, n)
+            return uniform(wlg.fold_in(keys, 0))
+
+        cur_lock0 = _draw_locks(pm, u0(wlg.STREAM_KEY))
+        gate = _rw_draw_gate(cfg, pm)
+        if gate is not False:
+            draws = u0(wlg.STREAM_RW)
+            cur_rw0 = draws if gate is True else \
+                torch.where(gate[:, None], draws, cur_rw0)
     hb = cfg.hist_buckets if cfg.hist else 1
     return SimState(
         t=torch.zeros(b, **i32),
@@ -574,8 +620,8 @@ def _init_state(cfg: SimConfig, tb: SimTables, pm: SimParams,
         events=torch.zeros(b, **i32),
         arr_t=arr0.contiguous(),
         energy=torch.zeros((b, n), **f32),
-        cur_lock=zeros.clone(),
-        cur_rw=torch.ones((b, n), **f32),
+        cur_lock=cur_lock0.contiguous(),
+        cur_rw=cur_rw0.contiguous(),
         ep_hist=torch.zeros((b, n, hb), **i32),
         cs_hist=torch.zeros((b, n, hb), **i32),
         pol=_active_policy(cfg).init_state(cfg, b, dev))
@@ -675,6 +721,21 @@ def _handle_arrival(st, cfg, tb, pm, c, t, cond) -> None:
     put(st.epoch_start, (c,), a, cond)
     put(st.phase, (c,), NONCRIT, cond)
     put(st.t_ready, (c,), t + nc0, cond)
+    if _ks_on(cfg):
+        # The epoch this arrival begins (index ep_cnt) draws its key.
+        _key_draws(st, cfg, pm, c, st.ep_cnt[r, c], cond)
+
+
+def _key_draws(st, cfg, pm, c, ep, cond) -> None:
+    """Core ``c``'s epoch ``ep``: its lock from the key stream and, where
+    the cell's policy reads it, its read/write uniform (where ``cond``)."""
+    gate = _rw_draw_gate(cfg, pm)
+    streams = (wlg.STREAM_KEY,) if gate is False else \
+        (wlg.STREAM_KEY, wlg.STREAM_RW)
+    u = wlg.event_uniforms(pm.seed, streams, c, ep, st.phase.shape[1])
+    put(st.cur_lock, (c,), _draw_locks(pm, u[:, 0]), cond)
+    if gate is not False:
+        put(st.cur_rw, (c,), u[:, 1], cond if gate is True else cond & gate)
 
 
 def _power_draw(tb, pm, st) -> torch.Tensor:
@@ -697,7 +758,7 @@ def _handle_release(st, cfg, tb, pm, c, t, cond) -> None:
     pol = _active_policy(cfg)
     r = rows(c)
     s = st.seg[r, c]
-    l = lock_of(st, tb, c)
+    l = lock_of(st, cfg, tb, c)
     n_seg = len(cfg.seg_cs_us)
 
     # acquire->release latency (paper Figure 1 metric).  The histograms
@@ -754,6 +815,12 @@ def _handle_release(st, cfg, tb, pm, c, t, cond) -> None:
     else:
         def _sc(d):
             return d
+
+    if _ks_on(cfg) and not cfg.wl_open and bool(upd.any()):
+        # Closed loop: the next epoch's key (ep_cnt counts it now).  The
+        # releaser's old lock ``l`` is already read, and pick_next's scans
+        # never include the releaser.
+        _key_draws(st, cfg, pm, c, st.ep_cnt[r, c], upd)
 
     # Advance the program: next segment, or (epoch done) the closed-loop
     # think gap (inter-epoch + segment-0 noncrit), or the open-loop
@@ -876,18 +943,19 @@ _WL_AXES = {"arrival_rate": "wl_rate", "cv": "wl_cv", "mix": "wl_mix",
 #: The fault axes that set their SimParams field as given (f32).
 _FAULT_AXES = ("preempt_rate", "churn_rate", "straggle_rate",
                "straggle_scale")
+#: The key-shard axes: each cell's Zipf constants and active lock count
+#: (``n_locks`` cells run against the padded ``cfg.n_locks`` locks).
+_KS_AXES = ("n_keys", "zipf_theta", "n_locks")
 #: Axes that set one SimParams field per cell (``_cell_params``).
 _PARAM_AXES = ("slo_us", "w_big", "prop_n", "seed", "n_cores",
                "long_epoch_prob", "long_epoch_scale", "wakeup_us") + \
-    tuple(_WL_AXES) + _FAULT_AXES + ("preempt_scale",)
+    tuple(_WL_AXES) + _FAULT_AXES + ("preempt_scale",) + _KS_AXES
 #: Gated features: sweeping the axis turns the gate on in the template.
 _GATE_AXES = ("long_epoch_prob", "wakeup_us", "preempt_rate",
               "churn_rate", "straggle_rate")
 #: Program axes: SimConfig fields rebuilt into each cell's tables.
 _PROGRAM_AXES = ("seg_noncrit_us", "seg_cs_us", "seg_lock",
                  "inter_epoch_us", "big", "speed_cs", "speed_nc")
-#: The reference's other axes, which need keyed traffic (not ported yet).
-_LATER_AXES = ("n_keys", "zipf_theta", "n_locks")
 
 
 def table_axes() -> tuple:
@@ -972,6 +1040,16 @@ def _cell_params(cfg: SimConfig, cell: dict, slo_us, seed) -> dict:
             pm[axis] = np.float32(cell[axis])
     if "preempt_scale" in cell:
         pm["preempt_scale"] = np.float32(ticks(cell["preempt_scale"]))
+    if any(a in cell for a in _KS_AXES):
+        # The Zipf constants are host-derived from (n_keys, theta): rebuild
+        # them all, as build_params would for this cell's config.
+        nk = int(cell.get("n_keys", cfg.n_keys))
+        th, ze, et, al = wlk.zipf_consts(
+            max(nk, 1), float(cell.get("zipf_theta", cfg.zipf_theta)))
+        pm.update(ks_keys=np.int32(nk), ks_theta=np.float32(th),
+                  ks_zeta=np.float32(ze), ks_eta=np.float32(et),
+                  ks_alpha=np.float32(al),
+                  ks_locks=np.int32(cell.get("n_locks", cfg.n_locks)))
     if "window0_us" in cell:
         # A swept initial window plays the role of default_window_us, so
         # the unit floor follows it.
@@ -989,24 +1067,18 @@ def sweep_config(cfg: SimConfig, axes: dict) -> SimConfig:
     ``sweep`` derives it: a ``policy`` axis grows ``policy_set`` (each
     cell's member rides in ``SimParams.pol_id``), and a swept gated
     feature (long epochs, wakeup, the fault rates, a workload axis,
-    watts) turns its gate on.
+    watts, ``n_keys``) turns its gate on.
     :func:`init_sweep` and :func:`simulate` take this config."""
     if not axes:
         raise ValueError("empty sweep: pass at least one axis")
     if "policy" in axes:
         if not axes["policy"]:
             raise ValueError("policy axis needs at least one name")
-        for p in axes["policy"]:
-            _not_ported(p)
         pset = tuple(dict.fromkeys(
             tuple(cfg.policy_set) + tuple(axes["policy"])))
         cfg = dataclasses.replace(cfg, policy_set=pset, policy=pset[0])
     allowed = sweepable_axes(cfg)
     for name in axes:
-        if name in _LATER_AXES:
-            raise NotImplementedError(
-                f"sweep axis {name!r} is not ported to repro_torch yet; "
-                f"sweepable: {allowed}")
         if name not in allowed:
             raise ValueError(f"unknown sweep axis {name!r}; "
                              f"sweepable: {allowed}")
@@ -1015,6 +1087,24 @@ def sweep_config(cfg: SimConfig, axes: dict) -> SimConfig:
             cfg = dataclasses.replace(cfg, **{gate: max(axes[gate])})
     if not cfg.wl and any(a in axes for a in _WL_AXES):
         cfg = dataclasses.replace(cfg, wl=True)
+    # An n_keys axis turns the key-shard gate on; the other key axes need
+    # it on.
+    if "n_keys" in axes:
+        if any(int(v) < 1 for v in axes["n_keys"]):
+            raise ValueError("n_keys axis values must be >= 1")
+        if not _ks_on(cfg):
+            cfg = dataclasses.replace(
+                cfg, n_keys=int(max(int(v) for v in axes["n_keys"])))
+    if not _ks_on(cfg) and any(a in axes for a in _KS_AXES):
+        bad = [a for a in _KS_AXES if a in axes]
+        raise ValueError(
+            f"sweep axes {bad} need the key-shard gate on: set "
+            f"SimConfig.n_keys > 0 (or include an n_keys axis)")
+    if "n_locks" in axes:
+        if any(not 1 <= int(v) <= cfg.n_locks for v in axes["n_locks"]):
+            raise ValueError(
+                f"n_locks axis values must lie in [1, cfg.n_locks="
+                f"{cfg.n_locks}] (the padded lock-vector size)")
     # Swept watts turn the energy gate on ((0.0,) pads to all-zero
     # tables, so cells that do not sweep a power column are unchanged).
     if not _energy_on(cfg) and any(
@@ -1039,6 +1129,14 @@ def _grid_cells(cfg: SimConfig, axes: dict, product: bool) -> list:
         raise ValueError("empty sweep")
     if "n_cores" in axes and max(axes["n_cores"]) > cfg.n_cores:
         raise ValueError("n_cores axis exceeds the padded cfg.n_cores")
+    if any(a in axes for a in _KS_AXES):
+        for cell in cells:
+            nk = int(cell.get("n_keys", cfg.n_keys))
+            nl = int(cell.get("n_locks", cfg.n_locks))
+            if nk < nl:
+                raise ValueError(
+                    f"sweep cell pairs n_keys={nk} with n_locks={nl}: "
+                    f"every lock needs at least one key")
     return cells
 
 

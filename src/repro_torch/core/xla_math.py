@@ -15,11 +15,16 @@ XLA's CPU code flushes subnormal results to zero; these functions and the
 kernel do not, so the two agree where the results are normal (``exp`` of
 at least -87.33), as every draw of the simulator's is.
 
-The constants are XLA's, as f32 bit patterns.  ``sin`` is the one function
-XLA leaves to libm (``sinf``); :func:`sin` rounds an f64 sine, which can
-differ from libm's in the last bit (``tests/test_torch_draws.py`` measures
-how often).  ``floor`` is exact on both sides; :func:`sqrt` is here
-because PyTorch's f32 ``sqrt`` on the CPU is not correctly rounded.
+The constants are XLA's, as f32 bit patterns.  ``sin`` and ``pow`` are
+the functions XLA leaves to libm (``sinf``, ``powf``).  :func:`sin` rounds
+an f64 sine, which can differ from libm's in the last bit
+(``tests/test_torch_draws.py`` measures how often).  :func:`powf` is
+glibc's ``powf`` itself (the x86-64 FMA variant that glibc 2.36 selects on
+a CPU with FMA): the same f64 operations, tables and fused multiply-adds,
+each FMA exact through :func:`fma64`, so it is bit-identical
+(``tests/test_torch_keys.py``).  ``floor`` is exact on both sides;
+:func:`sqrt` is here because PyTorch's f32 ``sqrt`` on the CPU is not
+correctly rounded.
 """
 
 from __future__ import annotations
@@ -237,3 +242,195 @@ def sin(x: torch.Tensor) -> torch.Tensor:
     out = torch.where(q == 0, sin_r, torch.where(
         q == 1, cos_r, torch.where(q == 2, -sin_r, -cos_r)))
     return out.float()
+
+
+# --------------------------------------------------------------------------
+# powf: glibc's (sysdeps/ieee754/flt-32/e_powf.c), as its x86-64 FMA variant
+# runs it: log2(x) through a 16-entry table and a polynomial in f64, times
+# y, then exp2 through a 32-entry table and a polynomial in f64, rounded
+# once to f32.  The tables and polynomials are the ones in that object's
+# .rodata, and the FMAs are the ones its code makes (nine vfmadd).
+# --------------------------------------------------------------------------
+
+#: (1/c, log2(c)) of each of the 16 subintervals of [0x3f330000, 2 x).
+_POWF_TAB = tuple(float.fromhex(h) for h in (
+    "0x1.661ec79f8f3bep+0", "-0x1.efec65b963019p-2",
+    "0x1.571ed4aaf883dp+0", "-0x1.b0b6832d4fca4p-2",
+    "0x1.49539f0f010b0p+0", "-0x1.7418b0a1fb77bp-2",
+    "0x1.3c995b0b80385p+0", "-0x1.39de91a6dcf7bp-2",
+    "0x1.30d190c8864a5p+0", "-0x1.01d9bf3f2b631p-2",
+    "0x1.25e227b0b8ea0p+0", "-0x1.97c1d1b3b7af0p-3",
+    "0x1.1bb4a4a1a343fp+0", "-0x1.2f9e393af3c9fp-3",
+    "0x1.12358f08ae5bap+0", "-0x1.960cbbf788d5cp-4",
+    "0x1.0953f419900a7p+0", "-0x1.a6f9db6475fcep-5",
+    "0x1.0000000000000p+0", "0x0.0p+0",
+    "0x1.e608cfd9a47acp-1", "0x1.338ca9f24f53dp-4",
+    "0x1.ca4b31f026aa0p-1", "0x1.476a9543891bap-3",
+    "0x1.b2036576afce6p-1", "0x1.e840b4ac4e4d2p-3",
+    "0x1.9c2d163a1aa2dp-1", "0x1.40645f0c6651cp-2",
+    "0x1.886e6037841edp-1", "0x1.88e9c2c1b9ff8p-2",
+    "0x1.767dcf5534862p-1", "0x1.ce0a44eb17bccp-2"))
+#: log2(1 + r) / r's polynomial, highest power first.
+_POWF_A = tuple(float.fromhex(h) for h in (
+    "0x1.27616c9496e0bp-2", "-0x1.71969a075c67ap-2", "0x1.ec70a6ca7baddp-2",
+    "-0x1.7154748bef6c8p-1", "0x1.71547652ab82bp+0"))
+_POWF_OFF = 0x3F330000
+#: exp2's table: the bits of 2^(j/32), less j << 47.
+_EXP2F_T = (
+    0x3ff0000000000000, 0x3fefd9b0d3158574, 0x3fefb5586cf9890f,
+    0x3fef9301d0125b51, 0x3fef72b83c7d517b, 0x3fef54873168b9aa,
+    0x3fef387a6e756238, 0x3fef1e9df51fdee1, 0x3fef06fe0a31b715,
+    0x3feef1a7373aa9cb, 0x3feedea64c123422, 0x3feece086061892d,
+    0x3feebfdad5362a27, 0x3feeb42b569d4f82, 0x3feeab07dd485429,
+    0x3feea47eb03a5585, 0x3feea09e667f3bcd, 0x3fee9f75e8ec5f74,
+    0x3feea11473eb0187, 0x3feea589994cce13, 0x3feeace5422aa0db,
+    0x3feeb737b0cdc5e5, 0x3feec49182a3f090, 0x3feed503b23e255d,
+    0x3feee89f995ad3ad, 0x3feeff76f2fb5e47, 0x3fef199bdd85529c,
+    0x3fef3720dcef9069, 0x3fef5818dcfba487, 0x3fef7c97337b9b5f,
+    0x3fefa4afa2a490da, 0x3fefd0765b6e4540)
+_EXP2F_SHIFT = float.fromhex("0x1.8p+47")      # round to k / 32
+_EXP2F_C = tuple(float.fromhex(h) for h in (
+    "0x1.c6af84b912394p-5", "0x1.ebfce50fac4f3p-3", "0x1.62e42ff0c52d6p-1"))
+#: y log2(x) above this overflows (|x^y| > 0x1.ffffffp127).
+_POWF_OFLOW = float.fromhex("0x1.fffffffd1d571p+6")
+_F64, _I64 = torch.float64, torch.int64
+_M32 = 0xFFFFFFFF
+
+
+def _split(x):
+    """Veltkamp's split of an f64 into two halves of 26 bits, x = hi + lo."""
+    t = x * 134217729.0                 # 2^27 + 1
+    hi = t - (t - x)
+    return hi, x - hi
+
+
+def fma64(a, b, c):
+    """``a * b + c`` in f64 with one rounding, as an FMA instruction gives it
+    (f64 tensors, or Python floats for ``b`` and ``c``), by error-free
+    transformations: the product exactly as two f64 (Dekker), its sum with
+    ``c`` as two (Knuth's TwoSum), the two low parts summed rounded to odd,
+    and that added to the high part, rounded to nearest once (Boldo and
+    Melquiond, "Emulation of FMA and correctly rounded sums: proved
+    algorithms using rounding to odd", 2008).  Exact where no part
+    overflows or falls below the normal range, as in :func:`powf`."""
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    uh = a * b
+    ul = ((ah * bh - uh) + ah * bl + al * bh) + al * bl
+    th = uh + c
+    bb = th - uh
+    tl = (uh - (th - bb)) + (c - bb)
+    s = tl + ul
+    bb = s - tl
+    e = (tl - (s - bb)) + (ul - bb)
+    # s rounded to odd: where it is inexact and its last bit even, the
+    # neighbour on the exact sum's side.
+    even = (s.view(_I64) & 1) == 0
+    odd = torch.nextafter(s, e * math.inf)
+    return th + torch.where((e != 0) & even, odd, s)
+
+
+def _table(vals, dtype, device) -> torch.Tensor:
+    key = (vals, dtype, device)
+    hit = _TABLES.get(key)
+    if hit is None:
+        hit = _TABLES[key] = torch.tensor(vals, dtype=dtype, device=device)
+    return hit
+
+
+_TABLES: dict = {}
+
+
+def _u32(x: torch.Tensor) -> torch.Tensor:
+    return x.view(_I32).to(_I64) & _M32
+
+
+def _checkint(iy: torch.Tensor) -> torch.Tensor:
+    """0: y is not an integer, 1: an odd integer, 2: an even one."""
+    e = (iy >> 23) & 0xFF
+    sh = torch.clamp(0x7F + 23 - e, 0, 31)
+    frac = (iy & ((1 << sh) - 1)) != 0
+    odd = (iy & (1 << sh)) != 0
+    out = torch.where(frac, 0, torch.where(odd, 1, 2))
+    out = torch.where(e > 0x7F + 23, 2, out)
+    return torch.where(e < 0x7F, 0, out)
+
+
+def powf(x, y) -> torch.Tensor:
+    """glibc's f32 ``powf(x, y)`` (XLA's CPU code calls it for ``x ** y``),
+    element-wise on broadcast f32 tensors, with the special cases of its
+    C source, and its subnormal results flushed to zero as XLA's CPU
+    runtime does (flush-to-zero set).  A subnormal ``x`` is taken as glibc
+    takes it, not as XLA's denormals-are-zero would."""
+    x, y = torch.broadcast_tensors(x.to(_F32), y.to(_F32))
+    dev = x.device
+    ix, iy = _u32(x), _u32(y)
+    # Negative finite x: the sign of an odd integer y, NaN otherwise.
+    yint = _checkint(iy)
+    neg = (ix & 0x80000000) != 0
+    sign = neg & (yint == 1)
+    ax = torch.where(neg, ix & 0x7FFFFFFF, ix)
+    # A subnormal |x|: normalised, its exponent made negative.
+    sub = ax < 0x00800000
+    if bool(sub.any()):
+        xs = (x.abs() * 8388608.0).view(_I32).to(_I64) & 0x7FFFFFFF
+        ax = torch.where(sub, xs - (23 << 23), ax)
+    # log2(x) = log1p(z / c - 1) / ln 2 + log2(c) + k, x = 2^k z.
+    tmp = (ax - _POWF_OFF) & _M32
+    i = (tmp >> 19) & 15
+    top = tmp & 0xFF800000
+    iz = (ax - top) & _M32
+    k = torch.where(top >= 2**31, top - 2**32, top) >> 23
+    tab = _table(_POWF_TAB, _F64, dev)
+    invc, logc = tab[2 * i], tab[2 * i + 1]
+    z = iz.to(_I32).view(_F32).double()
+    a = _POWF_A
+    r = fma64(z, invc, -1.0)
+    y0 = logc + k.double()
+    r2 = r * r
+    p1 = fma64(r, a[0], a[1])
+    p2 = fma64(r, a[2], a[3])
+    r4 = r2 * r2
+    q = fma64(r, a[4], y0)
+    q = fma64(r2, p2, q)
+    logx = fma64(p1, r4, q)
+    ylogx = y.double() * logx
+    # exp2(ylogx) = 2^(k/32) 2^r, r in [-1/64, 1/64].
+    kd = ylogx + _EXP2F_SHIFT
+    kk = kd.view(_I64) - _bits64(_EXP2F_SHIFT)
+    kd = kd - _EXP2F_SHIFT
+    r = ylogx - kd
+    tbits = _table(_EXP2F_T, _I64, dev)[kk & 31] + kk * (1 << 47)
+    s = tbits.view(_F64)
+    c = _EXP2F_C
+    zz = fma64(r, c[0], c[1])
+    r2 = r * r
+    yy = fma64(r, c[2], 1.0)
+    yy = fma64(zz, r2, yy) * s
+    out = yy.float()
+    out = torch.where(out.abs() < _MIN_NORMAL, 0.0, out)   # flush to zero
+    out = torch.where(ylogx > _POWF_OFLOW, math.inf, out)
+    out = torch.where(ylogx <= -150.0, 0.0, out)
+    out = torch.where(sign, -out, out)
+    out = torch.where(neg & (yint == 0), math.nan, out)
+    # x zero, infinite or NaN: x^2 or 1 / x^2 with the sign of an odd y.
+    x_zin = ((2 * ix - 1) & _M32) >= 2 * 0x7F800000 - 1
+    x2 = x * x
+    x2 = torch.where(neg & (yint == 1), -x2, x2)
+    out = torch.where(x_zin, torch.where((iy & 0x80000000) != 0, 1.0 / x2,
+                                         x2), out)
+    # y zero, infinite or NaN.
+    y_zin = ((2 * iy - 1) & _M32) >= 2 * 0x7F800000 - 1
+    ix2, iy2 = (2 * ix) & _M32, (2 * iy) & _M32
+    nan_in = (ix2 > 2 * 0x7F800000) | (iy2 > 2 * 0x7F800000)
+    one_x = ix2 == 2 * 0x3F800000
+    zero = (ix2 < 2 * 0x3F800000) == ((iy & 0x80000000) == 0)
+    ys = torch.where(one_x, 1.0, torch.where(zero, 0.0, y * y))
+    ys = torch.where(nan_in, x + y, ys)
+    ys = torch.where(ix == 0x3F800000, 1.0, ys)
+    ys = torch.where(iy2 == 0, 1.0, ys)
+    return torch.where(y_zin, ys, out)
+
+
+def _bits64(v: float) -> int:
+    return int(torch.tensor(v, dtype=_F64).view(_I64))

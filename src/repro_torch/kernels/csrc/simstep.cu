@@ -5,19 +5,22 @@
 // pallas_call with the packed state held in VMEM.  This kernel does the
 // same work for a batch of sweep cells: each launch advances every cell by
 // up to `chunk` events of the closed-loop step (acquire, release, standby
-// expiry) under the fifo / tas / prop / libasl / edf / shfl / dvfs_race
-// hooks, one instantiation per policy and one for merged policy sets that
-// switches on each cell's policy id at every hook (a warp is one cell, so
-// the branch is uniform).  Three runtime gates, read once per launch, add
-// the long-epoch draw, the blocking-lock wakeup on queue-pop handoffs and
-// the energy integration.  A second template parameter gives each policy
-// (and the merged set) a stochastic instantiation, which alone compiles
+// expiry) under the fifo / tas / prop / libasl / edf / shfl / dvfs_race /
+// ks_erew / ks_crew / ks_jbsq hooks, one instantiation per policy and one
+// for merged policy sets that switches on each cell's policy id at every
+// hook (a warp is one cell, so the branch is uniform).  Three runtime
+// gates, read once per launch, add the long-epoch draw, the blocking-lock
+// wakeup on queue-pop handoffs and the energy integration.  A second
+// template parameter gives each policy (and the merged set) a stochastic
+// instantiation, which alone compiles
 // the workload draws (wl: closed-loop think, service, MMPP phase; wl_open:
 // the ARRIVAL event and its gaps), the streaming histograms (hist) and the
-// faults (holder preemption, core churn, straggler spikes), each under a
-// runtime gate of its own; the other instantiations, the fig1 main path's,
-// compile none of it.  Results are bit-identical to the plain PyTorch
-// step (repro_torch/core/simlock.py::_step) and to the JAX package.
+// faults (holder preemption, core churn, straggler spikes) and the
+// key-sharded draws (each epoch's lock from a Zipf key, and ks_crew's
+// read/write class), each under a runtime gate of its own; the other
+// instantiations, the fig1 main path's, compile none of it.  Results are
+// bit-identical to the plain PyTorch step
+// (repro_torch/core/simlock.py::_step) and to the JAX package.
 //
 // What bounds it on this card: each cell is one serial chain of events.
 // Per launch a cell's state is read once and written once (a few hundred
@@ -78,10 +81,32 @@
 // word by lane 0 (a cell is one warp: no atomics).  The transcendentals
 // are XLA's own f32 polynomials (below), never CUDA's log1pf / erfinvf /
 // expf / log2f.
+// Keyed traffic (n_keys > 0) makes each core's lock state: `lk` holds its
+// epoch's drawn lock (cur_lock), staged and written back, drawn at each
+// epoch end (closed loop) or arrival (open loop) by uniform(fold_in(
+// counter_key(stream_key(seed, KEY), core), epoch)) through the Zipf
+// inverse CDF in XLA's f32 operations (its one fused multiply-add, fmaf)
+// and glibc's powf written out in doubles (xla_powf below, its nine FMAs
+// as __fma_rn, its tables in constant memory; never CUDA's powf).  The
+// ks_* picks are warp collectives: a lock's owner is the position l mod
+// n_active in the stable order active bigs, active littles, the rest
+// (two ballots and popc, then one ballot for the lane at it); ks_jbsq's
+// least served waiter a warp min of ep_cnt, then of attempt_t.  The
+// keyed operands (the Zipf params, the policies' knobs, cur_lock, cur_rw
+// and the three bypass counters) come in ArgsK, an extension of Args
+// that only keyed launches take (keys on, or a ks_* policy in the set; an
+// overload of the kernel and an instantiation of its own), so every
+// instantiation the parent had compiles as before: every keyed path sits
+// behind `if constexpr`, since even a runtime gate that folds to false
+// changed their code (a bool kept as a predicate, not a u16).
 // Shared memory per cell: (13 n + 2 n s + s + 2 l n + 8 l + 32) words for
 // n cores, s segments and l locks, 5 n more in a stochastic
 // instantiation (the long-epoch scales and shfl / dvfs_race's counters
-// took n + 2 l of it); up to four cells (warps) a block.
+// took n + 2 l of it) and 5 n + 3 l + 11 more in an instantiation that
+// takes ArgsK (cur_rw, the stream keys of the key draws, the ks_*
+// counters and the keyed params, staged rather than held in registers,
+// where they pushed the stochastic instantiations past 128 registers into
+// spills); up to four cells (warps) a block.
 //
 // Bit-exactness: build with -fmad=false (no a*b+c contraction), keep the
 // reference's compiled f32 operation order (its AIMD unit is one multiply
@@ -97,6 +122,8 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kNonCrit = 0, kStandby = 1, kQueued = 2, kHolder = 3,
@@ -105,7 +132,8 @@ constexpr int kInf = 1 << 30;
 // Policy ids (the registry's order); kMerged is the merged sets'
 // instantiation, which reads each cell's id.
 constexpr int kFifo = 0, kTas = 1, kProp = 2, kLibasl = 3, kEdf = 4,
-              kShfl = 5, kDvfsRace = 6, kMerged = 7;
+              kShfl = 5, kDvfsRace = 6, kKsErew = 7, kKsCrew = 8,
+              kKsJbsq = 9, kMerged = 10;
 constexpr int kMaxWarpsPerBlock = 4;
 constexpr int kSmemLimit = 232448;  // dynamic shared memory of one block
 constexpr unsigned kFull = 0xffffffffu;
@@ -167,11 +195,41 @@ struct Args {
   FastMod mod_n, mod_cap;
 };
 
+// The keyed operands, after Args's in the wrapper's order: the cells' Zipf
+// params and active lock counts, the ks_* policies' knobs, and the state
+// (each core's lock and read/write uniform, the per-lock bypass
+// counters).  Null where the launch's gates and policies do not read them.
+enum KeyOperand {
+  kKsKeys, kKsTheta, kKsZeta, kKsEta, kKsAlpha, kKsLocks, kErewBound,
+  kCrewWfrac, kCrewBound, kJbsqK, kCurLock, kCurRw, kErewCtr, kCrewCtr,
+  kJbsqCtr, kNumKeyOperands
+};
+
+// Args of the keyed launches' instantiations (keys on, or a ks_* policy
+// in the set), and the key gate.
+struct ArgsK : Args {
+  void* k[kNumKeyOperands];
+  int ks_on;
+};
+
+// The keyed params a cell stages (ArgsK instantiations): its Zipf
+// constants (zeta2 = 1 + 0.5^theta, once a launch) and active lock count,
+// and the ks_* policies' knobs with the cell's active core count.
+enum KeyParam {
+  kpKeys, kpLocks, kpZeta, kpEta, kpAlpha, kpZeta2, kpNActive, kpErewBound,
+  kpCrewWfrac, kpCrewBound, kpJbsqK, kNumKeyParams
+};
+
 // Words of shared memory one cell takes (see the header): a stochastic
 // instantiation stages 5 more per core.
 __host__ __device__ constexpr int cell_words(int n, int s, int l,
                                              bool stoch) {
   return 13 * n + 2 * n * s + s + 2 * l * n + 8 * l + 32 + (stoch ? 5 * n : 0);
+}
+
+// Words an instantiation that takes ArgsK stages after those.
+__host__ __device__ constexpr int keyed_words(int n, int l) {
+  return 5 * n + 3 * l + kNumKeyParams;
 }
 
 // One cell: pointers into its shared-memory stage, its rings in device
@@ -210,6 +268,15 @@ struct Cell {
   // ... read-only, staged
   int* wl_service;   // each core's SERVICES id override, -1 = the cell's
   float* ft_mask;    // each core's fault eligibility
+  // ArgsK instantiations: mutable, staged
+  float* cur_rw;     // each core's epoch read/write uniform (ks_crew)
+  int* erew_ctr;     // each lock's bypasses in a row (ks_erew, ks_crew,
+  int* crew_ctr;     // ks_jbsq)
+  int* jbsq_ctr;
+  // ... read-only, staged
+  uint32_t* kkey;    // each core's KEY and RW stream keys (2 words each;
+  uint32_t* rwkey;   // keyed draws)
+  int* kp;           // the cell's KeyParam values (f32 ones as bits)
   // device memory
   float* ep_lat;
   float* cs_lat;
@@ -238,6 +305,10 @@ struct Cell {
   float wl_rate, wl_cv, wl_mix, wl_mix_scale, wl_burst, wl_burst_len,
       wl_amp, wl_period, preempt_rate, preempt_scale, churn_rate,
       straggle_rate, straggle_scale, log2_lo, inv_log2g;
+  // keyed traffic's gates (ks: key draws; rw: this cell's policy reads the
+  // rw class); the rest of its state is staged, to keep the registers of
+  // the stochastic instantiations where they were.
+  bool ks, rw;
 };
 
 // Carve one cell's stage out of `base` (cell_words(n, s, l, stoch)
@@ -276,6 +347,17 @@ __device__ __forceinline__ void carve(Cell& c, int* base, int n, int s,
     c.wl_service = p;   p += n;
     c.ft_mask = reinterpret_cast<float*>(p);
   }
+}
+
+// Carve the keyed stage (keyed_words(n, l) words) out of `p`.
+__device__ __forceinline__ void carve_keyed(Cell& c, int* p, int n, int l) {
+  c.cur_rw = reinterpret_cast<float*>(p);   p += n;
+  c.erew_ctr = p;     p += l;
+  c.crew_ctr = p;     p += l;
+  c.jbsq_ctr = p;     p += l;
+  c.kkey = reinterpret_cast<uint32_t*>(p);  p += 2 * n;
+  c.rwkey = reinterpret_cast<uint32_t*>(p); p += 2 * n;
+  c.kp = p;
 }
 
 // Copy `count` 4-byte words between a warp's lanes.
@@ -548,6 +630,159 @@ __device__ __forceinline__ float think_gap(float u, int on, float p01,
   return 1.0f / rate;
 }
 
+// ------------------------------------------------- glibc's powf ----
+// XLA's CPU code calls glibc's powf for an f32 x ** y; this is that
+// function (sysdeps/ieee754/flt-32/e_powf.c as its x86-64 FMA variant
+// runs it, repro_torch/core/xla_math.py::powf): log2(x) through a
+// 16-entry table and a polynomial in double, times y, exp2 through a
+// 32-entry table and a polynomial in double, rounded once to f32, with
+// its nine FMAs as __fma_rn and every other double operation rounded;
+// subnormal results flushed to zero, as under XLA's runtime.
+
+// (1/c, log2 c) of each subinterval of [0x3f330000, 2 x that).
+__constant__ double kPowfTab[32] = {
+    0x1.661ec79f8f3bep+0, -0x1.efec65b963019p-2, 0x1.571ed4aaf883dp+0,
+    -0x1.b0b6832d4fca4p-2, 0x1.49539f0f010b0p+0, -0x1.7418b0a1fb77bp-2,
+    0x1.3c995b0b80385p+0, -0x1.39de91a6dcf7bp-2, 0x1.30d190c8864a5p+0,
+    -0x1.01d9bf3f2b631p-2, 0x1.25e227b0b8ea0p+0, -0x1.97c1d1b3b7af0p-3,
+    0x1.1bb4a4a1a343fp+0, -0x1.2f9e393af3c9fp-3, 0x1.12358f08ae5bap+0,
+    -0x1.960cbbf788d5cp-4, 0x1.0953f419900a7p+0, -0x1.a6f9db6475fcep-5,
+    0x1.0000000000000p+0, 0x0.0p+0, 0x1.e608cfd9a47acp-1,
+    0x1.338ca9f24f53dp-4, 0x1.ca4b31f026aa0p-1, 0x1.476a9543891bap-3,
+    0x1.b2036576afce6p-1, 0x1.e840b4ac4e4d2p-3, 0x1.9c2d163a1aa2dp-1,
+    0x1.40645f0c6651cp-2, 0x1.886e6037841edp-1, 0x1.88e9c2c1b9ff8p-2,
+    0x1.767dcf5534862p-1, 0x1.ce0a44eb17bccp-2};
+// exp2's table: the bits of 2^(j/32), less j << 47.
+__constant__ unsigned long long kExp2fT[32] = {
+    0x3ff0000000000000ull, 0x3fefd9b0d3158574ull, 0x3fefb5586cf9890full,
+    0x3fef9301d0125b51ull, 0x3fef72b83c7d517bull, 0x3fef54873168b9aaull,
+    0x3fef387a6e756238ull, 0x3fef1e9df51fdee1ull, 0x3fef06fe0a31b715ull,
+    0x3feef1a7373aa9cbull, 0x3feedea64c123422ull, 0x3feece086061892dull,
+    0x3feebfdad5362a27ull, 0x3feeb42b569d4f82ull, 0x3feeab07dd485429ull,
+    0x3feea47eb03a5585ull, 0x3feea09e667f3bcdull, 0x3fee9f75e8ec5f74ull,
+    0x3feea11473eb0187ull, 0x3feea589994cce13ull, 0x3feeace5422aa0dbull,
+    0x3feeb737b0cdc5e5ull, 0x3feec49182a3f090ull, 0x3feed503b23e255dull,
+    0x3feee89f995ad3adull, 0x3feeff76f2fb5e47ull, 0x3fef199bdd85529cull,
+    0x3fef3720dcef9069ull, 0x3fef5818dcfba487ull, 0x3fef7c97337b9b5full,
+    0x3fefa4afa2a490daull, 0x3fefd0765b6e4540ull};
+
+__device__ __forceinline__ bool zeroinfnan(uint32_t i) {
+  return 2u * i - 1u >= 2u * 0x7f800000u - 1u;
+}
+
+__device__ __forceinline__ bool is_signaling(float x) {
+  return 2u * (__float_as_uint(x) ^ 0x00400000u) > 2u * 0x7fc00000u;
+}
+
+// 0: y is not an integer, 1: an odd integer, 2: an even one.
+__device__ __forceinline__ int checkint(uint32_t iy) {
+  const int e = (iy >> 23) & 0xff;
+  if (e < 0x7f) return 0;
+  if (e > 0x7f + 23) return 2;
+  if (iy & ((1u << (0x7f + 23 - e)) - 1u)) return 0;
+  if (iy & (1u << (0x7f + 23 - e))) return 1;
+  return 2;
+}
+
+__device__ __forceinline__ float xla_powf(float x, float y) {
+  uint32_t ix = __float_as_uint(x);
+  const uint32_t iy = __float_as_uint(y);
+  bool negate = false;
+  if (ix - 0x00800000u >= 0x7f800000u - 0x00800000u || zeroinfnan(iy)) {
+    if (zeroinfnan(iy)) {
+      if (2u * iy == 0u) return is_signaling(x) ? x + y : 1.0f;
+      if (ix == 0x3f800000u) return is_signaling(y) ? x + y : 1.0f;
+      if (2u * ix > 2u * 0x7f800000u || 2u * iy > 2u * 0x7f800000u)
+        return x + y;
+      if (2u * ix == 2u * 0x3f800000u) return 1.0f;
+      if ((2u * ix < 2u * 0x3f800000u) == !(iy & 0x80000000u)) return 0.0f;
+      return __fmul_rn(y, y);
+    }
+    if (zeroinfnan(ix)) {
+      float x2 = __fmul_rn(x, x);
+      if ((ix & 0x80000000u) && checkint(iy) == 1) x2 = -x2;
+      return (iy & 0x80000000u) ? __fdiv_rn(1.0f, x2) : x2;
+    }
+    if (ix & 0x80000000u) {  // finite x < 0
+      const int yint = checkint(iy);
+      if (yint == 0) return __int_as_float(0x7fc00000);
+      negate = yint == 1;
+      ix &= 0x7fffffffu;
+    }
+    if (ix < 0x00800000u) {  // subnormal x: normalised
+      ix = __float_as_uint(__fmul_rn(x, 0x1p23f)) & 0x7fffffffu;
+      ix -= 23u << 23;
+    }
+  }
+  // log2(x) = log1p(z / c - 1) / ln 2 + log2(c) + k, x = 2^k z.
+  const uint32_t tmp = ix - 0x3f330000u;
+  const int i = (tmp >> 19) & 15;
+  const uint32_t top = tmp & 0xff800000u;
+  const int k = static_cast<int32_t>(top) >> 23;
+  const double z = static_cast<double>(__uint_as_float(ix - top));
+  const double r = __fma_rn(z, kPowfTab[2 * i], -1.0);
+  const double y0 = __dadd_rn(kPowfTab[2 * i + 1], static_cast<double>(k));
+  const double r2 = __dmul_rn(r, r);
+  const double p1 = __fma_rn(r, 0x1.27616c9496e0bp-2, -0x1.71969a075c67ap-2);
+  const double p2 = __fma_rn(r, 0x1.ec70a6ca7baddp-2, -0x1.7154748bef6c8p-1);
+  const double r4 = __dmul_rn(r2, r2);
+  double q = __fma_rn(r, 0x1.71547652ab82bp+0, y0);
+  q = __fma_rn(r2, p2, q);
+  const double ylogx = __dmul_rn(static_cast<double>(y), __fma_rn(p1, r4, q));
+  float out;
+  if (ylogx > 0x1.fffffffd1d571p+6) {
+    out = __int_as_float(0x7f800000);
+  } else if (ylogx <= -150.0) {
+    out = 0.0f;
+  } else {
+    // exp2(ylogx) = 2^(k/32) 2^r, r in [-1/64, 1/64].
+    const double shift = 0x1.8p+47;
+    const double kd = __dadd_rn(ylogx, shift);
+    const long long kk =
+        __double_as_longlong(kd) - __double_as_longlong(shift);
+    const double rr = __dsub_rn(ylogx, __dsub_rn(kd, shift));
+    const double s = __longlong_as_double(static_cast<long long>(
+        kExp2fT[kk & 31] + (static_cast<unsigned long long>(kk) << 47)));
+    const double zz = __fma_rn(rr, 0x1.c6af84b912394p-5, 0x1.ebfce50fac4f3p-3);
+    const double yy = __fma_rn(rr, 0x1.62e42ff0c52d6p-1, 1.0);
+    out = __double2float_rn(
+        __dmul_rn(__fma_rn(zz, __dmul_rn(rr, rr), yy), s));
+    if (fabsf(out) < bits_f(0x00800000u)) out = 0.0f;  // flush to zero
+  }
+  return negate ? -out : out;
+}
+
+// ------------------------------------------------ key-sharded draws ----
+
+// The lock of a key drawn from uniform u under the cell's Zipf constants:
+// the Gray / YCSB inverse CDF in the compiled reference's f32 operations
+// (eta u - eta one FMA), clipped, then the key's bucket.
+__device__ __forceinline__ float kp_f(const Cell& c, int k) {
+  return __int_as_float(c.kp[k]);
+}
+
+__device__ __forceinline__ int zipf_lock(const Cell& c, float u) {
+  const float n = static_cast<float>(c.kp[kpKeys]);
+  const float eta = kp_f(c, kpEta);
+  const float uz = __fmul_rn(u, kp_f(c, kpZeta));
+  const float base = __fadd_rn(fmaf(eta, u, -eta), 1.0f);
+  const float tail = floorf(__fmul_rn(n, xla_powf(base, kp_f(c, kpAlpha))));
+  const float k = uz < 1.0f ? 0.0f : uz < kp_f(c, kpZeta2) ? 1.0f : tail;
+  // fmaxf takes NaN to 0, as XLA's conversion does.
+  const int key = static_cast<int>(fminf(fmaxf(k, 0.0f), __fsub_rn(n, 1.0f)));
+  return key % max(c.kp[kpLocks], 1);
+}
+
+// Core `core`'s epoch `ep`: its lock, and its read/write uniform where the
+// cell's policy reads it, each from the core's staged stream key (every
+// lane draws the same value).
+__device__ __forceinline__ void key_draws(Cell& c, int core, int ep) {
+  c.lk[core] = zipf_lock(c, draw(c.kkey[2 * core], c.kkey[2 * core + 1],
+                                 ep));
+  if (c.rw)
+    c.cur_rw[core] = draw(c.rwkey[2 * core], c.rwkey[2 * core + 1], ep);
+}
+
 // ------------------------------------------------------------ helpers ----
 
 __device__ __forceinline__ int qlen(const Cell& c, int l, int b) {
@@ -737,6 +972,24 @@ __device__ __forceinline__ void bounded_grant(Cell& c, int* ctr, int l,
   }
 }
 
+// The owner of lock l (ks_erew, ks_crew): the position l mod n_active in
+// the stable order active big cores, active little cores, the rest (lane
+// 0 when no core is active).  Every lane reaches each ballot.
+__device__ __forceinline__ int owner_of(const Cell& c, int l) {
+  const int j = c.lane;
+  const int n_active = c.kp[kpNActive];
+  const bool act = j < n_active;
+  const bool big = act && c.big[j] == 1;
+  const unsigned bigs = __ballot_sync(kFull, big);
+  const unsigned lits = __ballot_sync(kFull, act && !big);
+  const unsigned below = (1u << j) - 1u;
+  const int pos = big ? __popc(bigs & below)
+                      : __popc(bigs) + __popc(lits & below);
+  const unsigned at =
+      __ballot_sync(kFull, act && pos == l % max(n_active, 1));
+  return at ? __ffs(at) - 1 : 0;
+}
+
 template <int P>
 __device__ __forceinline__ void pick_next(Cell& c, int l, int t) {
   const int j = c.lane;
@@ -802,13 +1055,49 @@ __device__ __forceinline__ void pick_next(Cell& c, int l, int t) {
     const int head = first_min(wt ? c.attempt_t[j] : kInf);
     bounded_grant(c, c.race_ctr, l,
                   c.race_ctr[l] >= c.race_bound ? head : fast, head, t);
+  } else if (P == kKsErew) {
+    // The lock's owner jumps the FIFO head, at most erew_bound in a row.
+    const bool wt = waiting(c, l);
+    const int head = first_min(wt ? c.attempt_t[j] : kInf);
+    const int owner = owner_of(c, l);
+    const bool use = c.phase[owner] == kQueued && c.lk[owner] == l &&
+                     c.erew_ctr[l] < c.kp[kpErewBound];
+    bounded_grant(c, c.erew_ctr, l, use ? owner : head, head, t);
+  } else if (P == kKsCrew) {
+    // The earliest reader; else the owner's write; at most crew_bound
+    // bypasses of the FIFO head in a row.
+    const bool wt = waiting(c, l);
+    const float wfrac = kp_f(c, kpCrewWfrac);
+    const bool reader = wt && !(c.cur_rw[j] < wfrac);
+    const int head = first_min(wt ? c.attempt_t[j] : kInf);
+    const int r_head = first_min(reader ? c.attempt_t[j] : kInf);
+    const bool any_r = __any_sync(kFull, reader);
+    const int owner = owner_of(c, l);
+    const bool owner_writes = c.phase[owner] == kQueued &&
+                              c.lk[owner] == l &&
+                              c.cur_rw[owner] < wfrac;
+    const bool use =
+        (any_r || owner_writes) && c.crew_ctr[l] < c.kp[kpCrewBound];
+    const int prefer = any_r ? r_head : owner_writes ? owner : 0;
+    bounded_grant(c, c.crew_ctr, l, use ? prefer : head, head, t);
+  } else if (P == kKsJbsq) {
+    // The least served waiter (fewest epochs, then the earliest attempt);
+    // the FIFO head once jbsq_k grants in a row bypassed it.
+    const bool wt = waiting(c, l);
+    const int head = first_min(wt ? c.attempt_t[j] : kInf);
+    const int least_ep = __reduce_min_sync(kFull, wt ? c.ep_cnt[j] : kInf);
+    const int least = first_min(wt && c.ep_cnt[j] == least_ep
+                                    ? c.attempt_t[j] : kInf);
+    const bool use = __any_sync(kFull, wt) && c.jbsq_ctr[l] < c.kp[kpJbsqK];
+    bounded_grant(c, c.jbsq_ctr, l, use ? least : head, head, t);
   }
 }
 
 // Run hook `F<policy>` of the cell's policy: the instantiation's own, or,
 // in the merged instantiation, the one the cell's id names (uniform over
-// the warp: a warp is one cell).
-#define BY_POLICY(P, F, ...)                                   \
+// the warp: a warp is one cell); the ks_* members only where the
+// instantiation takes ArgsK (KA).
+#define BY_POLICY(P, KA, F, ...)                               \
   do {                                                         \
     if constexpr (P == kMerged) {                              \
       switch (c.pol) {                                         \
@@ -818,7 +1107,20 @@ __device__ __forceinline__ void pick_next(Cell& c, int l, int t) {
         case kLibasl: F<kLibasl>(__VA_ARGS__); break;          \
         case kEdf: F<kEdf>(__VA_ARGS__); break;                \
         case kShfl: F<kShfl>(__VA_ARGS__); break;              \
-        default: F<kDvfsRace>(__VA_ARGS__); break;             \
+        default:                                               \
+          if constexpr (KA) {                                  \
+            if (c.pol == kKsErew)                              \
+              F<kKsErew>(__VA_ARGS__);                         \
+            else if (c.pol == kKsCrew)                         \
+              F<kKsCrew>(__VA_ARGS__);                         \
+            else if (c.pol == kKsJbsq)                         \
+              F<kKsJbsq>(__VA_ARGS__);                         \
+            else                                               \
+              F<kDvfsRace>(__VA_ARGS__);                       \
+          } else {                                             \
+            F<kDvfsRace>(__VA_ARGS__);                         \
+          }                                                    \
+          break;                                               \
       }                                                        \
     } else {                                                   \
       F<P>(__VA_ARGS__);                                       \
@@ -836,7 +1138,7 @@ __device__ __forceinline__ int scaled(bool on, int d, float scale) {
 // next epoch's workload, the next segment, and the policy's pick of the
 // next holder.  Outside the stochastic instantiations the wl / open /
 // hist gates are constant false and their paths compile away.
-template <int P>
+template <int P, bool KA, bool KS>
 __device__ __forceinline__ void release(Cell& c, int core, int t) {
   const int s = c.seg[core];
   const int l = c.lk[core];
@@ -888,7 +1190,17 @@ __device__ __forceinline__ void release(Cell& c, int core, int t) {
   const int inter = scaled(c.scaled, c.inter[core], scale);
   if (last) {
     c.seg[core] = 0;
-    c.lk[core] = c.seg_lock[0];
+    if constexpr (KS) {
+      // Keyed: the closed loop draws the next epoch's lock (ep_cnt counts
+      // it now; the old lock l is read above), the open loop at its
+      // arrival.
+      if (!c.ks)
+        c.lk[core] = c.seg_lock[0];
+      else if (!c.open)
+        key_draws(c, core, c.ep_cnt[core]);
+    } else {
+      c.lk[core] = c.seg_lock[0];
+    }
     if (c.open) {
       // Open loop: park on the pending arrival (possibly already past).
       set_ready(c, core, max(t, c.arr_t[core]));
@@ -899,19 +1211,24 @@ __device__ __forceinline__ void release(Cell& c, int core, int t) {
     }
   } else {
     c.seg[core] = s + 1;
-    c.lk[core] = c.seg_lock[s + 1];
+    if constexpr (KS) {
+      if (!c.ks) c.lk[core] = c.seg_lock[s + 1];
+    } else {
+      c.lk[core] = c.seg_lock[s + 1];
+    }
     set_ready(c, core, t + scaled(c.scaled,
                                   c.nc_dur[core * c.s + min(s + 1, c.s - 1)],
                                   scale));
   }
   c.phase[core] = last && c.open ? kArrival : kNonCrit;
   c.holder[l] = -1;
-  BY_POLICY(P, pick_next, c, l, t);
+  BY_POLICY(P, KA, pick_next, c, l, t);
 }
 
 // Open loop: the pending arrival fired.  The epoch begins at its true
 // arrival time (in the past when the core is backlogged), and the next
 // arrival's gap is drawn (index: the arrivals so far + 1).
+template <bool KS>
 __device__ __forceinline__ void arrival(Cell& c, int core, int t) {
   const int a = c.arr_t[core];
   const int ix = c.ep_cnt[core] + 1;
@@ -927,10 +1244,16 @@ __device__ __forceinline__ void arrival(Cell& c, int core, int t) {
   c.phase[core] = kNonCrit;
   set_ready(c, core,
             t + static_cast<int>(static_cast<float>(nc) * c.scale[core]));
+  if constexpr (KS) {
+    // Keyed: the epoch this arrival begins (index ep_cnt) draws its lock.
+    if (c.ks) key_draws(c, core, c.ep_cnt[core]);
+  }
 }
 
 // One event of one cell (the caller checked that the cell is live).
-template <int P>
+// KA: the instantiation takes ArgsK; KS: it compiles the key draws
+// (stochastic, with ArgsK).
+template <int P, bool KA, bool KS>
 __device__ __forceinline__ void step(Cell& c, int core, int t) {
   const int ph = c.phase[core];
   if (ph == kNonCrit) {
@@ -944,16 +1267,16 @@ __device__ __forceinline__ void step(Cell& c, int core, int t) {
       }
     }
     c.attempt_t[core] = t;
-    BY_POLICY(P, acquire, c, core, t);
+    BY_POLICY(P, KA, acquire, c, core, t);
   } else if (ph == kHolder) {
-    release<P>(c, core, t);
+    release<P, KA, KS>(c, core, t);
   } else if (ph == kStandby) {
     if (P == kLibasl || (P == kMerged && c.pol == kLibasl))
       standby_expiry(c, core, t);
   } else if (ph == kQueued || ph == kSpin) {
     set_ready(c, core, kInf);  // defensive re-park
   } else if (ph == kArrival) {
-    if (c.open) arrival(c, core, t);
+    if (c.open) arrival<KS>(c, core, t);
   }
 }
 
@@ -969,12 +1292,37 @@ __device__ __forceinline__ T* at_opt(const Args& a, Operand k,
   return a.p[k] ? static_cast<T*>(a.p[k]) + offset : nullptr;
 }
 
-// P: the policy (kMerged: each cell's).  ST: the stochastic
-// instantiation, which stages and runs the wl / wl_open / hist / fault
-// paths under their gates; the others compile none of them.
-template <int P, bool ST>
-__global__ void __launch_bounds__(kMaxWarpsPerBlock * 32)
-    fused_chunk_kernel(const Args a, int warps_per_block) {
+// A keyed operand's pointer, or null where the launch does not pass it.
+template <typename T>
+__device__ __forceinline__ T* key_at(const ArgsK& a, KeyOperand k,
+                                     size_t offset) {
+  return a.k[k] ? static_cast<T*>(a.k[k]) + offset : nullptr;
+}
+
+// Words of one cell's stage: an ArgsK instantiation's are keyed_words
+// longer.
+template <bool ST, bool KA>
+__host__ __device__ constexpr int stage_words(int n, int s, int l) {
+  if constexpr (KA)
+    return cell_words(n, s, l, ST) + keyed_words(n, l);
+  else
+    return cell_words(n, s, l, ST);
+}
+
+__device__ __forceinline__ bool key_gate(const Args&) { return false; }
+__device__ __forceinline__ bool key_gate(const ArgsK& a) {
+  return a.ks_on != 0;
+}
+
+// One launch of one cell (a warp).  P: the policy (kMerged: each cell's).
+// ST: the stochastic instantiation, which stages and runs the wl /
+// wl_open / hist / fault / key paths under their gates; the others compile
+// none of them.  A: Args, or ArgsK with the keyed operands (KA: a keyed
+// launch's instantiations), which stages cur_rw, the ks_* counters and the
+// keyed params; the key gate needs ST and KA.
+template <int P, bool ST, typename A>
+__device__ __forceinline__ void run_chunk(const A& a, int warps_per_block) {
+  constexpr bool KA = std::is_same<A, ArgsK>::value;
   extern __shared__ int smem[];
   const int lane = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
@@ -996,10 +1344,14 @@ __global__ void __launch_bounds__(kMaxWarpsPerBlock * 32)
 
   // The cell's stage as a 32-bit shared address, pinned in a register.
   unsigned stage = static_cast<unsigned>(
-      __cvta_generic_to_shared(smem + w * cell_words(n, s, l, ST)));
+      __cvta_generic_to_shared(smem + w * stage_words<ST, KA>(n, s, l)));
   asm volatile("" : "+r"(stage));
   Cell c;
   carve(c, static_cast<int*>(__cvta_shared_to_generic(stage)), n, s, l, ST);
+  if constexpr (KA) {
+    carve_keyed(c, static_cast<int*>(__cvta_shared_to_generic(stage)) +
+                       cell_words(n, s, l, ST), n, l);
+  }
   c.lane = lane;
   c.tr = tr0;
   c.n = n;
@@ -1023,6 +1375,12 @@ __global__ void __launch_bounds__(kMaxWarpsPerBlock * 32)
   c.scaled = c.long_on || (c.wl && !c.open);
   c.slo = *at<float>(a, kSlo, cb);
   c.pol = P == kMerged ? *at<int>(a, kPolId, cb) : P;
+  if constexpr (KA) {
+    // Keyed traffic: the draws (ST only) and, where the cell's policy is
+    // ks_crew, the read/write uniform.
+    c.ks = ST && key_gate(a);
+    c.rw = c.ks && (P == kKsCrew || (P == kMerged && c.pol == kKsCrew));
+  }
   c.w_big = *at<float>(a, kWBig, cb);
   c.prop_n = *at<int>(a, kPropN, cb);
   c.long_prob = c.long_on ? *at<float>(a, kLongProb, cb) : 0.0f;
@@ -1085,6 +1443,46 @@ __global__ void __launch_bounds__(kMaxWarpsPerBlock * 32)
       c.ep_hist = at<int>(a, kEpHist, cb * n * a.hist_buckets);
       c.cs_hist = at<int>(a, kCsHist, cb * n * a.hist_buckets);
     }
+    if constexpr (KA) {
+      if (c.ks) {
+        // The cell's Zipf constants, and this lane's core's stream keys,
+        // staged.
+        c.kp[kpKeys] = *key_at<int>(a, kKsKeys, cb);
+        c.kp[kpLocks] = *key_at<int>(a, kKsLocks, cb);
+        c.kp[kpZeta] = *key_at<int>(a, kKsZeta, cb);
+        c.kp[kpEta] = *key_at<int>(a, kKsEta, cb);
+        c.kp[kpAlpha] = *key_at<int>(a, kKsAlpha, cb);
+        c.kp[kpZeta2] = __float_as_int(__fadd_rn(
+            1.0f, xla_powf(0.5f, *key_at<float>(a, kKsTheta, cb))));
+        const uint32_t kseed = static_cast<uint32_t>(*at<int>(a, kSeed, cb));
+        uint32_t k0, k1;
+        core_key(kseed, 0x778Au, core, k0, k1);
+        if (lane < n) {
+          c.kkey[2 * lane] = k0;
+          c.kkey[2 * lane + 1] = k1;
+        }
+        if (c.rw) {
+          core_key(kseed, 0x778Bu, core, k0, k1);
+          if (lane < n) {
+            c.rwkey[2 * lane] = k0;
+            c.rwkey[2 * lane + 1] = k1;
+          }
+        }
+      }
+    }
+  }
+  // The ks_* policies' knobs and their owners' active core count, staged.
+  if constexpr (KA) {
+    const int* g_n_active = at_opt<int>(a, kNActive, cb);
+    const int* g_erew_bound = key_at<int>(a, kErewBound, cb);
+    const int* g_crew_wfrac = key_at<int>(a, kCrewWfrac, cb);
+    const int* g_crew_bound = key_at<int>(a, kCrewBound, cb);
+    const int* g_jbsq_k = key_at<int>(a, kJbsqK, cb);
+    c.kp[kpNActive] = g_n_active ? *g_n_active : n;
+    c.kp[kpErewBound] = g_erew_bound ? *g_erew_bound : 0;
+    c.kp[kpCrewWfrac] = g_crew_wfrac ? *g_crew_wfrac : 0;
+    c.kp[kpCrewBound] = g_crew_bound ? *g_crew_bound : 0;
+    c.kp[kpJbsqK] = g_jbsq_k ? *g_jbsq_k : 0;
   }
 
   // Stage the cell: every load of a pass is issued before its stores, so
@@ -1130,6 +1528,10 @@ __global__ void __launch_bounds__(kMaxWarpsPerBlock * 32)
       c.wl_service[lane] = c.wl ? at<int>(a, kWlServiceCol, cn)[lane] : -1;
       c.ft_mask[lane] = c.preempt || c.churn || c.straggle
                             ? at<float>(a, kFtMask, cn)[lane] : 1.0f;
+    }
+    if constexpr (KA) {
+      const float* g_cur_rw = key_at<float>(a, kCurRw, cn);
+      c.cur_rw[lane] = g_cur_rw ? g_cur_rw[lane] : 1.0f;
     }
     // edf's deadline offset: the SLO in ticks, capped, truncated.
     c.slo_t = static_cast<int>(
@@ -1187,8 +1589,30 @@ __global__ void __launch_bounds__(kMaxWarpsPerBlock * 32)
       c.race_ctr[i] = rc;
     }
   }
+  if constexpr (KA) {
+    const int* g_erew_ctr = key_at<int>(a, kErewCtr, cl);
+    const int* g_crew_ctr = key_at<int>(a, kCrewCtr, cl);
+    const int* g_jbsq_ctr = key_at<int>(a, kJbsqCtr, cl);
+#pragma unroll 1
+    for (int i = lane; i < l; i += 32) {
+      const int ec = g_erew_ctr ? g_erew_ctr[i] : 0;
+      const int cc = g_crew_ctr ? g_crew_ctr[i] : 0;
+      const int jc = g_jbsq_ctr ? g_jbsq_ctr[i] : 0;
+      c.erew_ctr[i] = ec;
+      c.crew_ctr[i] = cc;
+      c.jbsq_ctr[i] = jc;
+    }
+  }
   __syncwarp();
-  if (lane < n) c.lk[lane] = c.seg_lock[c.seg[lane]];
+  // Each core's lock: its epoch's drawn lock when keyed, else its
+  // segment's.
+  if constexpr (KA) {
+    if (lane < n)
+      c.lk[lane] = c.ks ? key_at<int>(a, kCurLock, cn)[lane]
+                        : c.seg_lock[c.seg[lane]];
+  } else {
+    if (lane < n) c.lk[lane] = c.seg_lock[c.seg[lane]];
+  }
   __syncwarp();
 
   for (int it = 0; it < chunk; ++it) {
@@ -1210,7 +1634,7 @@ __global__ void __launch_bounds__(kMaxWarpsPerBlock * 32)
     }
     t = t_min;
     events += 1;
-    step<P>(c, core, t);
+    step<P, KA, ST && KA>(c, core, t);
     __syncwarp();
   }
 
@@ -1241,6 +1665,16 @@ __global__ void __launch_bounds__(kMaxWarpsPerBlock * 32)
   warp_copy(at<int>(a, kPropCtr, cl), c.prop_ctr, l, lane);
   if (g_shfl_ctr) warp_copy(g_shfl_ctr, c.shfl_ctr, l, lane);
   if (g_race_ctr) warp_copy(g_race_ctr, c.race_ctr, l, lane);
+  if constexpr (KA) {
+    int* g_erew_ctr = key_at<int>(a, kErewCtr, cl);
+    int* g_crew_ctr = key_at<int>(a, kCrewCtr, cl);
+    int* g_jbsq_ctr = key_at<int>(a, kJbsqCtr, cl);
+    if (c.ks) warp_copy(key_at<int>(a, kCurLock, cn), c.lk, n, lane);
+    if (c.rw) warp_copy(key_at<float>(a, kCurRw, cn), c.cur_rw, n, lane);
+    if (g_erew_ctr) warp_copy(g_erew_ctr, c.erew_ctr, l, lane);
+    if (g_crew_ctr) warp_copy(g_crew_ctr, c.crew_ctr, l, lane);
+    if (g_jbsq_ctr) warp_copy(g_jbsq_ctr, c.jbsq_ctr, l, lane);
+  }
   if (lane == 0) {
     *at<int>(a, kT, cb) = t;
     *at<int>(a, kEvents, cb) = events;
@@ -1250,42 +1684,79 @@ __global__ void __launch_bounds__(kMaxWarpsPerBlock * 32)
   }
 }
 
+// The kernels: one for Args, one for ArgsK.  An ArgsK instantiation asks
+// for one block per SM, which lets ptxas give the stochastic ones the
+// registers the key draws need (at the default it held them at 128 and
+// spilled); their grids are small, so occupancy costs nothing.
 template <int P, bool ST>
-int launch(const Args& a, cudaStream_t stream) {
-  const int bytes = 4 * cell_words(a.n, a.s, a.l, ST);
+__global__ void __launch_bounds__(kMaxWarpsPerBlock * 32)
+    fused_chunk_kernel(const Args a, int warps_per_block) {
+  run_chunk<P, ST>(a, warps_per_block);
+}
+
+template <int P, bool ST>
+__global__ void __launch_bounds__(kMaxWarpsPerBlock * 32, 1)
+    fused_chunk_kernel(const ArgsK a, int warps_per_block) {
+  run_chunk<P, ST>(a, warps_per_block);
+}
+
+template <int P, bool ST, typename A>
+int launch(const A& a, cudaStream_t stream) {
+  void (*kernel)(const A, int) = fused_chunk_kernel<P, ST>;
+  const int bytes =
+      4 * stage_words<ST, std::is_same<A, ArgsK>::value>(a.n, a.s, a.l);
   if (bytes > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
   const int warps = min(kMaxWarpsPerBlock, kSmemLimit / bytes);
   const int smem = warps * bytes;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        fused_chunk_kernel<P, ST>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int blocks = (a.n_cells + warps - 1) / warps;
-  fused_chunk_kernel<P, ST><<<blocks, warps * 32, smem, stream>>>(a, warps);
+  kernel<<<blocks, warps * 32, smem, stream>>>(a, warps);
   return static_cast<int>(cudaGetLastError());
 }
 
+// An instantiation takes ArgsK where the launch is keyed (keys on, or a
+// ks_* policy in the cell's set): always for the ks_* policies, never for
+// the seven others' deterministic ones; the rest have both.
+template <int P, bool ST>
+int launch_args(const ArgsK& a, bool keyed, cudaStream_t st) {
+  if constexpr (P == kKsErew || P == kKsCrew || P == kKsJbsq)
+    return launch<P, ST>(a, st);
+  else if constexpr (!ST && P != kMerged)
+    return launch<P, ST>(static_cast<const Args&>(a), st);
+  else
+    return keyed ? launch<P, ST>(a, st)
+                 : launch<P, ST>(static_cast<const Args&>(a), st);
+}
+
 template <bool ST>
-int launch_policy(int policy, const Args& a, cudaStream_t st) {
+int launch_policy(int policy, const ArgsK& a, bool keyed, cudaStream_t st) {
   switch (policy) {
     case kFifo:
-      return launch<kFifo, ST>(a, st);
+      return launch_args<kFifo, ST>(a, keyed, st);
     case kTas:
-      return launch<kTas, ST>(a, st);
+      return launch_args<kTas, ST>(a, keyed, st);
     case kProp:
-      return launch<kProp, ST>(a, st);
+      return launch_args<kProp, ST>(a, keyed, st);
     case kLibasl:
-      return launch<kLibasl, ST>(a, st);
+      return launch_args<kLibasl, ST>(a, keyed, st);
     case kEdf:
-      return launch<kEdf, ST>(a, st);
+      return launch_args<kEdf, ST>(a, keyed, st);
     case kShfl:
-      return launch<kShfl, ST>(a, st);
+      return launch_args<kShfl, ST>(a, keyed, st);
     case kDvfsRace:
-      return launch<kDvfsRace, ST>(a, st);
+      return launch_args<kDvfsRace, ST>(a, keyed, st);
+    case kKsErew:
+      return launch_args<kKsErew, ST>(a, keyed, st);
+    case kKsCrew:
+      return launch_args<kKsCrew, ST>(a, keyed, st);
+    case kKsJbsq:
+      return launch_args<kKsJbsq, ST>(a, keyed, st);
     case -1:
-      return launch<kMerged, ST>(a, st);
+      return launch_args<kMerged, ST>(a, keyed, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1295,28 +1766,36 @@ int launch_policy(int policy, const Args& a, cudaStream_t st) {
 
 extern "C" {
 
-// Shared memory of one cell, in bytes: the wrapper raises by name where a
-// shape does not fit one block.
-int simstep_cell_bytes(int n, int s, int l, int stoch) {
-  return 4 * cell_words(n, s, l, stoch != 0);
+// Shared memory of one cell, in bytes (`keyed`: an instantiation that
+// takes ArgsK): the wrapper raises by name where a shape does not fit one
+// block.
+int simstep_cell_bytes(int n, int s, int l, int stoch, int keyed) {
+  return 4 * (cell_words(n, s, l, stoch != 0) +
+              (keyed ? keyed_words(n, l) : 0));
 }
 
 // Advance every cell by up to `chunk` events on `stream`.  `operands`
-// holds the 73 device pointers (tables, params, state; the wrapper's
-// _ORDER) into contiguous cell-major tensors, null where the launch's
-// gates and policies do not read them; `ints` holds n_cells, n, s, l,
-// cap, policy (its id, or -1 for a merged set), chunk, max_events, the
-// long-epoch, wakeup and energy gates, then the stochastic instantiation
-// (0 / 1), the wl, open-loop and histogram gates, the bucket count and
-// the preemption, churn and straggler gates; `floats` the AIMD unit
-// factor and the window cap.  Returns the cudaError_t of the launch (0 =
-// success); the caller raises on anything else.
+// holds the 88 device pointers (tables, params, state, then the keyed
+// operands; the wrapper's _ORDER) into contiguous cell-major tensors, null
+// where the launch's gates and policies do not read them; `ints` holds
+// n_cells, n, s, l, cap, policy (its id, or -1 for a merged set), chunk,
+// max_events, the long-epoch, wakeup and energy gates, then the
+// stochastic instantiation (0 / 1), the wl, open-loop and histogram
+// gates, the bucket count, the preemption, churn and straggler gates, the
+// key gate and whether the launch is keyed (ArgsK: keys on, or a ks_*
+// policy in the set); `floats` the AIMD unit factor and the window cap.
+// Returns the cudaError_t of the launch (0 = success); the caller raises
+// on anything else.
 int simstep_fused_chunk(void* const* operands, const int* ints,
                         const float* floats, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  Args a;
+  ArgsK a;
   for (int k = 0; k < kNumOperands; ++k) a.p[k] = operands[k];
+  for (int k = 0; k < kNumKeyOperands; ++k)
+    a.k[k] = operands[kNumOperands + k];
+  a.ks_on = ints[19];
+  const bool keyed = ints[20] != 0;
   a.n_cells = ints[0];
   a.n = ints[1];
   a.s = ints[2];
@@ -1340,8 +1819,8 @@ int simstep_fused_chunk(void* const* operands, const int* ints,
   a.mod_n = fast_mod(static_cast<unsigned>(a.n));
   a.mod_cap = fast_mod(static_cast<unsigned>(a.cap));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return stoch ? launch_policy<true>(ints[5], a, st)
-               : launch_policy<false>(ints[5], a, st);
+  return stoch ? launch_policy<true>(ints[5], a, keyed, st)
+               : launch_policy<false>(ints[5], a, keyed, st);
 }
 
 const char* simstep_error_string(int code) {

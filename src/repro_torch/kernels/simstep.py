@@ -6,9 +6,9 @@ bounds it and how the design answers that).  One launch advances every
 sweep cell of a batched ``(SimTables, SimParams, SimState)`` by up to
 ``chunk`` events of the masked step, updating the state tensors in place
 (the latency rings and histograms are large, so no copy is made).  A
-config with a workload, histogram or fault gate on (:func:`stochastic`)
-runs its policy's stochastic instantiation; the others compile none of
-that code.
+config with a workload, histogram, fault or key gate on
+(:func:`stochastic`) runs its policy's stochastic instantiation; the
+others compile none of that code.
 
 :func:`fused_chunk` launches the kernel on CUDA tensors and raises on
 anything the kernel does not take; it never falls back.  On CPU tensors it
@@ -51,14 +51,23 @@ _STOCH_PARAMS = (
     ("hist_warmup", _I32))
 _STOCH_STATE = (("svc_scale", _F32), ("wl_on", _I32), ("arr_t", _I32),
                 ("ep_hist", _I32), ("cs_hist", _I32))
+# The keyed operands (csrc/simstep.cu, enum KeyOperand), after the others:
+# the cells' Zipf params, the ks_* policies' knobs, the state.
+_KEY_PARAMS = (("ks_keys", _I32), ("ks_theta", _F32), ("ks_zeta", _F32),
+               ("ks_eta", _F32), ("ks_alpha", _F32), ("ks_locks", _I32))
+_KEY_KNOBS = (("erew_bound", _I32), ("crew_wfrac", _F32),
+              ("crew_bound", _I32), ("jbsq_k", _I32))
+_KEY_STATE = (("cur_lock", _I32), ("cur_rw", _F32), ("erew_ctr", _I32),
+              ("crew_ctr", _I32), ("jbsq_ctr", _I32))
+_KEYED = _KEY_PARAMS + _KEY_KNOBS + _KEY_STATE
 # Operands a launch passes only where its gates or policies read them
 # (null pointers otherwise), so the fig1 main path passes the 29 it reads
-# of the 73.
+# of the 88.
 _OPTIONAL = frozenset((
     "pol_id", "long_prob", "long_scale", "scale", "wakeup", "dvfs",
     "race_w", "p_cs", "p_spin", "p_park", "p_idle", "n_active", "energy",
     "shfl_bound", "shfl_ctr", "race_bound", "race_ctr")) | frozenset(
-    k for k, _ in _STOCH_TABLES + _STOCH_PARAMS + _STOCH_STATE)
+    k for k, _ in _STOCH_TABLES + _STOCH_PARAMS + _STOCH_STATE + _KEYED)
 _ORDER = (
     ("big", _I32), ("cs_dur", _I32), ("nc_dur", _I32), ("inter", _I32),
     ("seg_lock", _I32), ("slo_scale", _F32), ("dvfs", _F32),
@@ -75,7 +84,7 @@ _ORDER = (
     ("prop_ctr", _I32), ("shfl_ctr", _I32), ("race_ctr", _I32),
     ("ep_lat", _F32), ("ep_cnt", _I32), ("cs_lat", _F32), ("cs_cnt", _I32),
     ("events", _I32), ("energy", _F32)) + _STOCH_TABLES + _STOCH_PARAMS + \
-    _STOCH_STATE
+    _STOCH_STATE + _KEYED
 _MERGED = -1                         # the merged sets' instantiation
 _MAX_CORES = 32
 
@@ -91,15 +100,17 @@ _TABLE_FIELDS = frozenset(("big", "cs_dur", "nc_dur", "inter", "seg_lock",
                            "hist_log2_lo", "hist_inv_log2g"))
 _PARAM_FIELDS = frozenset(("slo", "pol_id", "w_big", "prop_n", "n_active",
                            "horizon", "long_prob", "long_scale", "wakeup")
-                          + tuple(k for k, _ in _STOCH_PARAMS))
+                          + tuple(k for k, _ in _STOCH_PARAMS + _KEY_PARAMS))
+_POL_PARAMS = ("shfl_bound", "race_bound") + tuple(k for k, _ in _KEY_KNOBS)
+_POL_STATE = ("shfl_ctr", "race_ctr", "erew_ctr", "crew_ctr", "jbsq_ctr")
 # Each operand's shape, by its sizes' names (B cells, N cores, S
 # segments, L locks, C ring slots, H histogram buckets); [B, N] unless
 # listed.
 _SHAPES = {"cs_dur": "bns", "nc_dur": "bns", "seg_lock": "bs", "key": "b2",
            "q": "bl2n", "q_head": "bl2", "q_tail": "bl2", "holder": "bl",
-           "prop_ctr": "bl", "shfl_ctr": "bl", "race_ctr": "bl",
-           "ep_lat": "bnc", "cs_lat": "bnc", "hist_log2_lo": "b",
-           "hist_inv_log2g": "b", "ep_hist": "bnh", "cs_hist": "bnh"}
+           "prop_ctr": "bl", "ep_lat": "bnc", "cs_lat": "bnc",
+           "hist_log2_lo": "b", "hist_inv_log2g": "b", "ep_hist": "bnh",
+           "cs_hist": "bnh", **{k: "bl" for k in _POL_STATE}}
 # Operands named apart from their field: the wl_service column (the
 # params have a wl_service too).
 _FIELD = {"wl_service_col": "wl_service"}
@@ -108,8 +119,8 @@ _FIELD = {"wl_service_col": "wl_service"}
 def _source(k: str) -> tuple:
     """(where operand ``k`` lives, the names of its sizes)."""
     where = ("col" if k in _COLUMNS + ("ft_mask", "wl_service_col") else
-             "pm.pol" if k in ("shfl_bound", "race_bound") else
-             "st.pol" if k in ("shfl_ctr", "race_ctr") else
+             "pm.pol" if k in _POL_PARAMS else
+             "st.pol" if k in _POL_STATE else
              "tables" if k in _TABLE_FIELDS else
              "params" if k in _PARAM_FIELDS else "state")
     dims = _SHAPES.get(k, "b" if where in ("params", "pm.pol")
@@ -149,14 +160,36 @@ def _needs(cfg) -> frozenset:
                       ("straggle", ("straggle_scale",))):
         if getattr(cfg, f"{rate}_rate") > 0.0:
             need |= {"seed", "ft_mask", f"{rate}_rate", *own}
+    if "ks_erew" in names or "ks_crew" in names:
+        need.add("n_active")        # the owner map
+    for pol, own in (("ks_erew", ("erew_bound", "erew_ctr")),
+                     ("ks_crew", ("crew_wfrac", "crew_bound", "crew_ctr",
+                                  "cur_rw")),
+                     ("ks_jbsq", ("jbsq_k", "jbsq_ctr"))):
+        if pol in names:
+            need |= set(own)
+    if simlock._ks_on(cfg):
+        need |= {"seed", "cur_lock"} | {k for k, _ in _KEY_PARAMS}
     return frozenset(need)
 
 
 def stochastic(cfg) -> bool:
     """Does ``cfg`` run the kernel's stochastic instantiation (a workload,
-    histogram or fault gate on)?"""
+    histogram, fault or key gate on)?"""
     return bool(simlock._wl_on(cfg) or cfg.hist or cfg.preempt_rate > 0.0
-                or cfg.churn_rate > 0.0 or cfg.straggle_rate > 0.0)
+                or cfg.churn_rate > 0.0 or cfg.straggle_rate > 0.0
+                or simlock._ks_on(cfg))
+
+
+_KS_POLICIES = frozenset(("ks_erew", "ks_crew", "ks_jbsq"))
+
+
+def keyed(cfg) -> bool:
+    """Does a launch under ``cfg`` run a keyed instantiation (``ArgsK``:
+    keys on, or a ks_* policy in the set)?  The others compile as they
+    did before keyed traffic was ported."""
+    return bool(simlock._ks_on(cfg) or _KS_POLICIES.intersection(
+        cfg.policy_set or (cfg.policy,)))
 
 
 # (name, dtype, where, sizes) of every operand, in the kernel's order.
@@ -209,14 +242,18 @@ def _operands(tables, params, state, cfg) -> tuple:
 _SMEM_LIMIT = 232_448                # dynamic shared memory of one block
 
 
-def cell_bytes(n: int, s: int, l: int, stoch: bool = False) -> int:
+def cell_bytes(n: int, s: int, l: int, stoch: bool = False,
+               keyed: bool = False) -> int:
     """Shared memory one cell takes in the kernel (``csrc/simstep.cu``:
     its per-core state and tables, queues, holders, the policies'
     per-lock counters and 32 pick weights; the stochastic instantiation's
     per-core service scale, phase bit, arrival, service id and fault
-    mask), for ``n`` cores, ``s`` segments and ``l`` locks."""
+    mask; with the keyed operands each core's read/write uniform and two
+    stream keys, the ks_* per-lock counters and 11 keyed params), for
+    ``n`` cores, ``s`` segments and ``l`` locks."""
     return 4 * (13 * n + 2 * n * s + s + 2 * l * n + 8 * l + 32
-                + (5 * n if stoch else 0))
+                + (5 * n if stoch else 0)
+                + (5 * n + 3 * l + 11 if keyed else 0))
 
 
 def instantiation(cfg) -> int:
@@ -260,22 +297,24 @@ def bind(tables, params, state, chunk: int, cfg):
         raise ValueError(f"the simstep kernel runs 1..{_MAX_CORES} cores "
                          f"per cell (one warp lane each), got {n}")
     stoch = stochastic(cfg)
-    if cell_bytes(n, s, l, stoch) > _SMEM_LIMIT:
+    size = cell_bytes(n, s, l, stoch, keyed(cfg))
+    if size > _SMEM_LIMIT:
         raise ValueError(f"a cell of {n} cores, {s} segments and {l} locks "
-                         f"takes {cell_bytes(n, s, l, stoch)} bytes of "
-                         f"shared memory, over one block's {_SMEM_LIMIT}")
+                         f"takes {size} bytes of shared memory, over one "
+                         f"block's {_SMEM_LIMIT}")
     lib = _lib()
     fn = lib.simstep_fused_chunk
     ptrs = _PTRS()                       # null where not passed
     for k, x in ts.items():
         ptrs[_INDEX[k]] = x.data_ptr()
-    ints = (ctypes.c_int * 19)(
+    ints = (ctypes.c_int * 21)(
         b, n, s, l, cap, instantiation(cfg), int(chunk),
         int(cfg.max_events), int(cfg.long_epoch_prob > 0.0),
         int(cfg.wakeup_us > 0.0), int(simlock._energy_on(cfg)), int(stoch),
         int(simlock._wl_on(cfg)), int(cfg.wl_open), int(cfg.hist),
         state.ep_hist.shape[2], int(cfg.preempt_rate > 0.0),
-        int(cfg.churn_rate > 0.0), int(cfg.straggle_rate > 0.0))
+        int(cfg.churn_rate > 0.0), int(cfg.straggle_rate > 0.0),
+        int(simlock._ks_on(cfg)), int(keyed(cfg)))
     # The two f32 constants of Algorithm 2: the unit factor and the cap.
     floats = (ctypes.c_float * 2)(float(unit_factor(cfg.pct)),
                                   float(ticks(cfg.max_window_us)))

@@ -71,6 +71,18 @@ def test_lognormal_service_times_are_not_ported_yet():
         assert a.tobytes() == b.tobytes()
 
 
+def test_lognormal_service_times_match_reference():
+    """Lognormal service times, bit for bit (the test above keeps its old
+    name): counter normals through XLA's f32 ``erf_inv``, the lognormal
+    op by op as the reference's host draw runs it."""
+    for cv, seed in ((0.5, 0), (1.0, 11), (2.0, 7)):
+        spec = dict(dist="lognormal", mean=1.5, cv=cv)
+        a = jg.service_times(jg.ServiceSpec(**spec), 2000, seed)
+        b = tg.service_times(tg.ServiceSpec(**spec), 2000, seed)
+        assert a.dtype == b.dtype == np.float32
+        assert a.tobytes() == b.tobytes()
+
+
 def test_choice_and_think_gaps_are_bit_identical():
     for kw in ({}, {"weights": [0.2, 0.5, 0.3]}):
         a = jg.choice(PROMPTS, 500, 4, **kw)

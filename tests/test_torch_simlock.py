@@ -7,7 +7,9 @@ key, at the golden-digest scale (``SIM_US``, ``SLO_US``, ``SEED``,
 
 The Bench-1 program runs in ``test_torch_simlock_bench1.py`` and the
 single runs, carries and extra axes in ``test_torch_simlock_run.py``;
-this file also holds the checks of what the port refuses."""
+this file also holds the checks that the port runs every feature and
+axis of the reference (keyed traffic since it was ported:
+``test_torch_simlock_keyed*.py``)."""
 
 import numpy as np
 import pytest
@@ -69,13 +71,19 @@ def test_sweep_matches_reference(policy):
 
 
 def test_policy_ids_and_axes_match_reference():
-    ref_ids = rsl.POLICIES
-    assert sl.POLICIES == {k: ref_ids[k] for k in
-                           ("fifo", "tas", "prop", "libasl", "edf", "shfl",
-                            "dvfs_race")}
-    assert set(ref_ids) - set(sl.POLICIES) == set(sl._LATER_POLICIES)
-    assert set(sl.SWEEPABLE) <= set(rsl.SWEEPABLE)
-    assert set(sl.SWEEPABLE) | set(sl._LATER_AXES) == set(rsl.SWEEPABLE)
+    """All ten policy ids and every sweep axis are the reference's; nothing
+    is refused any more."""
+    assert sl.POLICIES == rsl.POLICIES
+    assert len(sl.POLICIES) == 10
+    assert set(sl.SWEEPABLE) == set(rsl.SWEEPABLE)
+    assert not [k for k in vars(sl) if k.startswith("_LATER")]
+    from repro.core import policies as rpol
+    from repro_torch.core import policies as tpol
+    for name in sl.POLICIES:
+        mine, ref = tpol.get(name), rpol.get(name)
+        for attr in ("host_scheduler", "host_dispatch", "uses_rw",
+                     "uses_standby", "state_slots", "sweep_axes"):
+            assert getattr(mine, attr) == getattr(ref, attr), (name, attr)
     assert set(sl.table_axes()) == set(rsl.table_axes())
     assert list(sl.SimState._fields) == list(rsl.SimState._fields)
     assert list(sl.SimParams._fields) == list(rsl.SimParams._fields)
@@ -98,9 +106,8 @@ def test_default_device_needs_cuda(monkeypatch):
 # Features the port refused until it ran them: they construct now.
 PORTED = ("wl", "wl_open", "hist", "preempt_rate", "churn_rate",
           "straggle_rate")
-
-
-@pytest.mark.parametrize("kw, feature", [
+KEYED = ("n_keys", "ks_erew", "ks_crew", "ks_jbsq")
+FEATURE_CASES = [
     (dict(wl=True), "wl"),
     (dict(wl_open=True), "wl_open"),
     (dict(wl=True, wl_service="lognormal", long_epoch_prob=0.1), "wl"),
@@ -114,17 +121,35 @@ PORTED = ("wl", "wl_open", "hist", "preempt_rate", "churn_rate",
     (dict(policy_set=("fifo", "ks_jbsq")), "ks_jbsq"),
     (dict(policy="ks_erew"), "ks_erew"),
     (dict(policy="ks_crew"), "ks_crew"),
-])
+]
+
+
+@pytest.mark.parametrize("kw, feature", FEATURE_CASES)
 def test_unsupported_features_raise(kw, feature):
-    """Keyed traffic and the ``ks_*`` policies raise, naming the feature;
-    the stochastic workloads, histograms and faults construct and turn
-    the kernel's stochastic instantiation on."""
+    """Nothing raises any more: the stochastic workloads, histograms and
+    faults construct and turn the kernel's stochastic instantiation on;
+    keyed traffic and the ``ks_*`` policies construct, and a short sweep
+    of them matches the reference in every leaf."""
+    from repro_torch.kernels import simstep
+    cfg = sl.SimConfig(**kw)
     if feature in PORTED:
-        from repro_torch.kernels import simstep
-        assert simstep.stochastic(sl.SimConfig(**kw))
+        assert simstep.stochastic(cfg)
         return
-    with pytest.raises(NotImplementedError, match=feature):
-        sl.SimConfig(**kw)
+    assert feature in KEYED
+    compare_grid({"seed": [gd.SEED]}, sim_time_us=300.0, **kw)
+
+
+@pytest.mark.parametrize("kw, feature", FEATURE_CASES)
+def test_feature_gates(kw, feature):
+    """Each feature's gates: the stochastic workloads, histograms, faults
+    and keyed traffic run the kernel's stochastic instantiation; keyed
+    traffic and the ``ks_*`` policies its keyed one."""
+    from repro_torch.kernels import simstep
+    cfg = sl.SimConfig(**kw)
+    assert simstep.stochastic(cfg) == (feature in PORTED
+                                       or feature == "n_keys")
+    assert simstep.keyed(cfg) == (feature in KEYED)
+    assert sl._ks_on(cfg) == (feature == "n_keys")
 
 
 @pytest.mark.parametrize("axis, values", [
@@ -136,8 +161,10 @@ def test_unsupported_features_raise(kw, feature):
     ("straggle_scale", [2.0]),
 ])
 def test_unsupported_axes_raise(axis, values):
-    """The key-shard axes and policies raise; the workload and fault axes
-    sweep, a swept rate or workload knob turning its gate on."""
+    """Every axis sweeps: the workload and fault axes turn their gate on;
+    the ``ks_*`` policies and the key-shard axes (an ``n_keys`` axis
+    turning the key gate on) match the reference in every leaf, and
+    ``zipf_theta`` without the gate raises as the reference does."""
     cfg = sl.SimConfig(sim_time_us=100.0)
     if axis in ("preempt_rate", "arrival_rate", "straggle_scale"):
         swept = sl.sweep_config(cfg, {axis: values})
@@ -146,8 +173,15 @@ def test_unsupported_axes_raise(axis, values):
         st, grid = sl.sweep(cfg, {axis: values}, device="cpu")
         assert int(st.events[0]) > 0 and list(grid[axis]) == values
         return
-    with pytest.raises(NotImplementedError, match=axis):
-        sl.sweep(cfg, {axis: values}, device="cpu")
+    if axis == "zipf_theta":
+        for mod in (sl, rsl):
+            with pytest.raises(ValueError, match="key-shard gate"):
+                mod.sweep(mod.SimConfig(sim_time_us=100.0), {axis: values})
+    keys = {"zipf_theta": 8, "policy": 8}.get(axis, 0)
+    if axis == "n_keys":
+        assert sl.sweep_config(cfg, {axis: values}).n_keys == 4
+    compare_grid({axis: values}, product=True, sim_time_us=300.0,
+                 n_keys=keys)
 
 
 def test_bad_sweeps_raise_like_reference():
