@@ -9,9 +9,10 @@ Phases, each of which fails the script (non-zero exit, no result line):
 
 1. Print the card (``nvidia-smi``) and build every CUDA kernel from
    ``src/repro_torch/kernels/csrc`` with ``nvcc`` (one process per
-   source, all started together); ``fused_chunk`` must keep no stack
-   frame in any instantiation (``ptxas -v``; each policy's and the
-   merged set's, deterministic and stochastic).
+   source, ``simstep.cu`` one per instantiation group, all started
+   together); ``fused_chunk`` must keep no stack frame in any
+   instantiation (``ptxas -v``; each policy's and the merged set's,
+   deterministic and stochastic).
 2. Hold the ``fused_chunk`` kernel against its plain PyTorch version on
    the card, bit for bit in every state leaf: each of the seven policies
    on the fig1 and Bench-1 programs over a small grid; each again on the
@@ -59,6 +60,32 @@ Phases, each of which fails the script (non-zero exit, no result line):
    on the card and bound, and the figure's own columns (throughput and
    epoch P99 a row; the excess of the histogram P99 / P999 over the SLO;
    goodput and its SLO fraction).
+3d. The keyshard figure (``paper_figs.keyshard``: fifo, ks_erew, ks_crew,
+   ks_jbsq, 9 cells each, 4,096 Zipf keys) at full length through
+   ``sweep``'s two parts, each grid held to the JAX package's final
+   state, after its keyed cuts and each ``ks_*`` policy with keys off,
+   kernel against plain step.
+3e. The six closed-loop figures of ``paper_figs`` at full length through
+   ``sweep``'s two parts, with the ``fused_chunk`` counter set to 0 just
+   before and read just after: ``fig1_collapse`` for the seven
+   registered policies 3b does not run, ``fig4_big_affinity``,
+   ``fig5_proportional``, ``bench1_slo_sweep``, ``bench4_scalability``
+   (fifo, tas, then the zipped 24-cell libasl grid whose SLOs come from
+   the tas rows) and ``bench2_variable``'s four ``run`` calls with the
+   windows carried.  Each grid's (each run's) final state must equal the
+   JAX package's (``FIGURE_DIGESTS``); its cells, events, wall time,
+   events/s, launches and ms a launch on the card.
+3f. The simulator's API on the card, the counter set to 0 just before
+   and read just after: Bench-4's libasl grid and the loadlat cut swept
+   one-shot (held to their JAX digests), resumable in slices of 7 and 64
+   cells (the last slices' checkpoints deleted and resumed) and split
+   over 2, 3 and 4 x ``cuda:0``, each bit-equal to the one-shot sweep; a
+   resume directory of another sweep refused; ``sweep_slo`` over Figure
+   8b's seven SLOs and the ``amp_config`` multi-tenant grid held to their
+   JAX digests; fig1's registered policies one executable each; the
+   phase's ``sweep_log()`` and ``executable_records()``.
+3g. ``examples/lock_microbench_torch.py`` once, in its own process: exit
+   0, its six tables and its ``fused_chunk`` launches.
 4. Hold the ``mlstm_scan`` kernel against its plain PyTorch version on
    the card: f32 and bf16 inputs, with and without a carry, S in {1, 7,
    15, 16, 17, 256} (the ring's 16-step chunks' edges), dh in {32, 192},
@@ -179,7 +206,8 @@ Phases, each of which fails the script (non-zero exit, no result line):
     forward, recompute, attention backward, scan backward, the rest of
     the backward and the optimizer; against the wall time of one more
     step, the device idle share.
-20. Print the kernel table (JSON), the card and, last, the device line.
+20. Print each phase's wall time, the kernel table (JSON), the card and,
+    last, the device line.
 
 It exits non-zero when no CUDA device is present, and when the port's
 package is not next to it.
@@ -648,6 +676,92 @@ def keyshard_cuts(sl) -> list:
             ("keyshard open cut", open_cfg, open_axes, 1e9, False)]
 
 
+# benchmarks/paper_figs.py's closed-loop figures that phase 3e holds at
+# full length: fig1_collapse for the registered policies phase 3b does not
+# run (grids "collapse <policy>"; 3b's are "fig1 <policy>"),
+# fig4_big_affinity, fig5_proportional, bench1_slo_sweep and
+# bench4_scalability (its libasl grid from the tas rows, as Bench-1's
+# phase 2 comes from phase 1: bench4_phase2), then bench2_variable's four
+# runs with the windows carried (bench2_phases).
+FIG1_MORE = ("fifo", "tas", "prop", "libasl", "ks_erew", "ks_crew",
+             "ks_jbsq")
+BENCH4 = dict(seg_cs_us=(6.0,), seg_noncrit_us=(0.5,), inter_epoch_us=2.0)
+BENCH2_US, BENCH2_SLO = 40_000.0, 150.0
+BENCH2_PHASES = (("base", {}), ("x8", dict(seg_noncrit_us=(8.0, 4.0, 4.0,
+                                                          4.0))),
+                 ("back", {}), ("x256", dict(seg_noncrit_us=(
+                     256.0, 128.0, 128.0, 128.0))))
+# examples/lock_microbench.py's Figure 8b: sweep_slo on the default config.
+FIG8B_SLOS = (20.0, 40.0, 60.0, 80.0, 100.0, 150.0, 200.0)
+FIG8B_US = 50_000.0
+# Phase 3f's resumable sweeps' slices, and its split counts.
+RESUME_CHUNKS = (7, 64)
+SPLITS = (2, 3, 4)
+
+
+def closed_grids(sl) -> list:
+    """Phase 3e's grids as (name, cfg, axes, slo_us, product), for either
+    package's ``simlock``, in run order (Bench-4's libasl grid from
+    :func:`bench4_phase2`, Bench-2 from :func:`bench2_phases`)."""
+    ns = {"n_cores": list(range(1, 9))}
+    grids = [(f"collapse {p}", fig_cfg(sl, p, **FIG1_KW.get(p, {})), ns,
+              FIG1_SLO.get(p, 1e9), True) for p in FIG1_MORE]
+    grids += [(f"fig4 {p}", fig_cfg(sl, p, seg_cs_us=(6.0,), **kw), ns,
+               1e9, True) for p, kw in (("fifo", {}),
+                                        ("tas", dict(w_big=8.0)))]
+    grids.append(("fig5 prop", fig_cfg(sl, "prop"),
+                  {"prop_n": [1, 2, 5, 10, 20, 50]}, 1e9, True))
+    import numpy as np
+    # numpy floats, as paper_figs passes them (an SLO's ticks are rounded
+    # by its type: the reference's _cell_params).
+    grids.append(("fig8b bench1_slo_sweep", bench1_cfg(sl, "libasl"),
+                  {"slo_us": list(np.linspace(20.0, 400.0, 14))}, 1e9,
+                  True))
+    grids += [(f"bench4 {p}", fig_cfg(sl, p, **kw, **BENCH4), ns, 1e9, True)
+              for p, kw in (("fifo", {}), ("tas", dict(w_big=8.0)))]
+    return grids
+
+
+def bench4_phase2(sl, tas_p99) -> tuple:
+    """Bench-4's zipped 24-cell libasl grid: at each n, SLO 0, the tas
+    row's epoch P99 and LibASL-MAX (SLO and window 1e5)."""
+    cfg = fig_cfg(sl, "libasl", **BENCH4)
+    w = cfg.default_window_us
+    axes = {"n_cores": [], "slo_us": [], "window0_us": []}
+    for n, p99 in zip(range(1, 9), tas_p99):
+        for slo, w0 in ((0.0, w), (p99, w), (1e5, 1e5)):
+            for k, v in zip(axes, (n, slo, w0)):
+                axes[k].append(v)
+    return ("bench4 libasl", cfg, axes, 1e9, False)
+
+
+def bench2_phases(sl) -> list:
+    """Bench-2's four runs as (name, cfg): libasl on the Bench-1 program,
+    40,000 us each, the noncritical sections x8, back, x256; each
+    ``run(cfg, BENCH2_SLO, 0, windows)`` carries the previous window."""
+    return [(f"bench2 {tag}", bench1_cfg(sl, "libasl", sim_time_us=BENCH2_US,
+                                         **kw)) for tag, kw in BENCH2_PHASES]
+
+
+def amp_grid(sl, clients, generators) -> tuple:
+    """The multi-tenant grid of phase 3f: ``amp_config`` with a big-affine
+    class at SLO 50 and a little-affine bimodal class at SLO 500, libasl
+    with ``wl`` on at fig1's 60,000 us, seeds 0-3, run at the base SLO."""
+    mix = clients.WorkloadMix((
+        clients.ClientClass("lc", weight=1.0, slo=50.0, affinity="big"),
+        clients.ClientClass("be", weight=1.0, slo=500.0, affinity="little",
+                            service=generators.ServiceSpec("bimodal",
+                                                           mix=0.3))))
+    cfg, _ = clients.amp_config(fig_cfg(sl, "libasl", wl=True), mix,
+                                base_slo=50.0)
+    return ("amp_config libasl", cfg, {"seed": [0, 1, 2, 3]}, 50.0, True)
+
+
+def fig8b_cfg(sl):
+    """examples/lock_microbench.py's Figure 8b config."""
+    return sl.SimConfig(policy="libasl", sim_time_us=FIG8B_US)
+
+
 def full_digest(st) -> str:
     """sha256 over every leaf of a numpy state (reference dtypes), the
     pol slots included, in field order."""
@@ -663,9 +777,11 @@ def full_digest(st) -> str:
 
 # full_digest of the JAX package's final state of each figure grid.
 # tests/test_torch_simstep_figs.py recomputes them with JAX (the keyshard
-# grids: tests/test_torch_figure_digests_keys.py), but for the load grids
+# grids: tests/test_torch_figure_digests_keys.py; phase 3e's and 3f's:
+# tests/test_torch_figure_digests_closed*.py), but for the load grids
 # (loadlat_sweep ... chaos dvfs_race), recorded once from the JAX package:
-# 10 grids, 10.4M events, about 80 s on a CPU.
+# 10 grids, 10.4M events, about 80 s on a CPU.  Bench-2's entries are each
+# carried run's final state, without the cell axis.
 FIGURE_DIGESTS = {
     "bench1 merged, phase 1":
         "51eea560a1233c20002c568c3322769f1cdb5a8a1a2307de9959c46006126bd7",
@@ -733,6 +849,46 @@ FIGURE_DIGESTS = {
         "d3da3453b6562379cabf5a4b18e29d125b3d007cb0848e8d816f888d24d5710d",
     "keyshard jbsq":
         "341c61b142b4c8b76f76ab8a536745a57f4aa9271a341c2df757d9d44069f639",
+    "collapse fifo":
+        "0786bd3c028e0a1ec0168fec376b92943e703d051bbe6d1855f897fcdda64c52",
+    "collapse tas":
+        "fe8491c38bf58b7cc9f088d8cab974443e1abe5b3d4d934ebd199306f78e6cdd",
+    "collapse prop":
+        "2fa24049a0e0d88950e6fc803bc01fc4a7b48282a01bee4121b5606482fc117e",
+    "collapse libasl":
+        "ec262a5470ea43ec0984045b9a496ce66a87a32612141a2435bd77403cccf34e",
+    "collapse ks_erew":
+        "a0bd5c24f6746204eca59026f8c128ca7df223452e7397eaba07ce3f9ed7fa28",
+    "collapse ks_crew":
+        "502ea73695a362ca03706d3d4b32611839b6620c72c1316fef7f24773b6834f0",
+    "collapse ks_jbsq":
+        "7f398482255b483cd0c5adae969d45a9144621dbc9549defe96ddc688af3d2f5",
+    "fig4 fifo":
+        "ee5e5564d80911b7c17c69e06944563ed3221ade5431b20f8ef0c2d55894eb08",
+    "fig4 tas":
+        "44d2252b52a09f553abf49002f7332988c5591fdbe220a5642f8ca3bac52e471",
+    "fig5 prop":
+        "f8cc57eb43a100e10aff8156148a66996d3e06b2db481856c53c1ffe462a9672",
+    "fig8b bench1_slo_sweep":
+        "33b8d1bec7ee6d113c387573289f50d30bae44f7f27c10555f19faa9801a02c1",
+    "bench4 fifo":
+        "75f9de34cc28ec4fb47c0e2d860cf4993ba28cc2e0236738b4fc997de4b05342",
+    "bench4 tas":
+        "e2c049636d0dfa7130432dafd334abd3517ce7d4bd2d815f78e6c21d6b552728",
+    "bench4 libasl":
+        "b201484d09f41124aed9a0ba5aa9313f0e37fa3de8baf7e3517f48694ac00249",
+    "bench2 base":
+        "762796e66c5f58e0b3f127bbc3ca32336dd1e6fb91c91a753a0866a1ad60b4d7",
+    "bench2 x8":
+        "75b7a7b0b399bb896cdce6d0c7738b1e5c2726578e3ca31da3112a16b31d8b66",
+    "bench2 back":
+        "3f36d95ee05c2df3ad720e820ee3b848b60836911e16d0faa98c778fe84a13ff",
+    "bench2 x256":
+        "cb57db7903b76a0321d2d135ccce21a67037a4e8bd507a77bffc387ad36b366f",
+    "amp_config libasl":
+        "5cdf606db6103e1b7138675a70fa72a34ecbd2dbed295466de88013037cc1055",
+    "figure8b sweep_slo":
+        "d014a55300bf04f9cfc5108d2f1271ef0023fa8e97d57d97c82df43716c17eac",
 }
 # full_digest of the JAX package's final state of each load grid's cut
 # (cut_grid) and of FEATURE_CUT.  tests/test_torch_figure_digests_load.py
@@ -806,16 +962,18 @@ def instantiation(line: str) -> str:
 
 def ptxas_bytes(build, name, pattern) -> dict:
     """Each kernel instantiation's bytes that ``pattern``'s groups count
-    (summed), from ptxas's report in the build log of ``csrc/<name>.cu``."""
+    (summed), from ptxas's report in the build logs of ``csrc/<name>.cu``
+    (each of its libraries')."""
     import re
     out, entry = {}, ""
-    for line in build.lib_path(name).with_suffix(".log").read_text() \
-            .splitlines():
-        if "Compiling entry" in line:
-            entry = instantiation(line)
-        m = re.search(pattern, line)
-        if m:
-            out[entry] = sum(int(g) for g in m.groups())
+    for part in range(build.parts(name)):
+        for line in build.lib_path(name, part).with_suffix(".log") \
+                .read_text().splitlines():
+            if "Compiling entry" in line:
+                entry = instantiation(line)
+            m = re.search(pattern, line)
+            if m:
+                out[entry] = sum(int(g) for g in m.groups())
     return out
 
 
@@ -937,30 +1095,16 @@ def cuda_ms(fn) -> float:
 
 def launch_bound(tb, pm, cfg, simstep, before, after, launches) -> tuple:
     """Least time for one launch on this run's data (``launches`` of them
-    took ``before`` to ``after``): in each launch every cell that retires
-    an event reads the kernel's tables, params and state (rings and
-    histograms excepted) once and writes its state once, each recorded
-    latency writes one 4-byte ring sample and each histogram sample reads
-    and writes one 4-byte count.  The operations (argmin compares and handler
-    steps per event) take far less time than the bytes."""
-    ts, _ = simstep._operands(tb, pm, before, cfg)
-    state = set(before._fields) | {"shfl_ctr", "race_ctr", "erew_ctr",
-                                   "crew_ctr", "jbsq_ctr"}
-    skip = {"ep_lat", "cs_lat", "ep_hist", "cs_hist"}
-    if not (cfg.p_cs or cfg.p_spin or cfg.p_park or cfg.p_idle):
-        skip |= {"energy", "p_cs", "p_spin", "p_park", "p_idle"}
-    if not cfg.long_epoch_prob > 0.0:
-        state.discard("scale")           # read, not written back
-    per_cell = sum((2 if k in state else 1) * x[0].numel() * x.element_size()
-                   for k, x in ts.items() if x is not None and k not in skip)
+    took ``before`` to ``after``): the bytes ``simstep.launch_bytes``
+    counts (in each launch every cell that retires an event reads the
+    kernel's tables, params and state, rings and histograms excepted, once
+    and writes its state once; each recorded latency writes one 4-byte
+    ring sample and each histogram sample reads and writes one 4-byte
+    count), the count the sweep records use.  The operations (argmin
+    compares and handler steps per event) take far less time than the
+    bytes."""
+    n_bytes = simstep.launch_bytes(tb, pm, before, after, cfg, launches)
     ev = after.events - before.events
-    samples = int((after.ep_cnt - before.ep_cnt).sum()
-                  + (after.cs_cnt - before.cs_cnt).sum())
-    # A histogram sample reads and writes one 4-byte count.
-    counts = int(sum((a.long() - b.long()).sum() for a, b in (
-        (after.ep_hist, before.ep_hist), (after.cs_hist, before.cs_hist))))
-    n_bytes = int((ev > 0).sum()) * per_cell + (
-        4 * samples + 8 * counts) / launches
     ops = int(ev.sum()) * (2 * before.t_ready.shape[1] + 64) / launches
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / FP32_OPS_PER_S * 1e3
@@ -1151,8 +1295,7 @@ def figure_run(sl, simstep, name, cfg, axes, slo_us, product) -> tuple:
            "simulate_ms": (t2 - t1) * 1e3, "events_per_s": ev.sum() / wall,
            "launches": n, "card_ms": card, "ms": card / n,
            "bound_ms": bound, "bound_by": by,
-           "instantiation": ("merged" if cfg.policy_set else cfg.policy)
-           + (" stochastic" if simstep.stochastic(cfg) else "")}
+           "instantiation": simstep.instantiation_name(cfg)}
     same = got == FIGURE_DIGESTS.get(name)
     print(f"figure {name}: {row['cells']} cells, {row['events']} events, "
           f"{wall:.3f} s ({row['init_sweep_ms']:.1f} ms init_sweep, "
@@ -1348,6 +1491,241 @@ def phase_keyshard(sl, simstep) -> dict:
                                         rows.values()):
         raise AssertionError("the keyshard grids' launches do not add up")
     return {"launches": launches, "grids": rows}
+
+
+def carried_run(sl, simstep, name, cfg, windows) -> tuple:
+    """One of Bench-2's runs (``run`` with ``windows0`` carried) on the
+    card, held to the JAX package's final state; -> (its numbers, its
+    final state)."""
+    import torch
+    n0 = simstep.fused_chunk.launches
+    w_in = None if windows is None else windows.clone()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = sl.run(cfg, BENCH2_SLO, 0, windows, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = simstep.fused_chunk.launches - n0
+    got = full_digest(sl.to_reference(st))
+    card = sum(v for k, v in kernel_split(lambda: sl.run(
+        cfg, BENCH2_SLO, 0, w_in, device="cuda"), 1).items()
+        if "fused_chunk" in k)
+    simstep.fused_chunk.launches = n0 + n
+    ev = int(st.events)
+    row = {"cells": 1, "events": ev, "wall_s": wall,
+           "events_per_s": ev / wall, "launches": n, "card_ms": card,
+           "ms": card / n, "instantiation": cfg.policy}
+    same = got == FIGURE_DIGESTS[name]
+    mean_w = float(st.window[4:].mean()) / 100.0
+    print(f"figure {name}: 1 cell, {ev} events, {wall:.3f} s, "
+          f"{row['events_per_s']:.0f} events/s, {n} launches, fused_chunk "
+          f"on the card {card:.2f} ms ({row['ms']:.4f} ms a launch); little "
+          f"cores' mean window {mean_w:.2f} us; "
+          f"{'bit-identical to' if same else 'DIFFERS from'} the JAX "
+          f"reference (sha256 {got[:16]})", flush=True)
+    if not same or ev <= 0 or n <= 0:
+        raise AssertionError(f"figure {name}: final state differs from JAX, "
+                             f"or no event or launch")
+    return row, st
+
+
+def phase_closed(sl, simstep) -> dict:
+    """Phase 3e: the six closed-loop figures at full length, each grid
+    (and each of Bench-2's carried runs) held to the JAX package's final
+    state, with the ``fused_chunk`` counter set to 0 just before and read
+    just after."""
+    t0 = time.time()
+    simstep.fused_chunk.launches = 0
+    rows, tas_p99 = {}, None
+    for name, cfg, axes, slo, product in closed_grids(sl):
+        rows[name], summ = figure_run(sl, simstep, name, cfg, axes, slo,
+                                      product)
+        if name == "bench4 tas":
+            tas_p99 = [s["ep_p99_all_us"] for s in summ]
+    b4 = bench4_phase2(sl, tas_p99)
+    rows[b4[0]], _ = figure_run(sl, simstep, *b4)
+    windows = None
+    for name, cfg in bench2_phases(sl):
+        rows[name], st = carried_run(sl, simstep, name, cfg, windows)
+        windows = st.window
+    launches = simstep.fused_chunk.launches
+    total_ev = sum(r["events"] for r in rows.values())
+    total_s = sum(r["wall_s"] for r in rows.values())
+    print(f"closed-loop figures: {len(rows)} grids and runs, "
+          f"{sum(r['cells'] for r in rows.values())} cells, {total_ev} "
+          f"events in {total_s:.3f} s ({total_ev / total_s:.0f} events/s), "
+          f"{launches} fused_chunk launches; phase 3e {time.time() - t0:.1f}"
+          f" s", flush=True)
+    if launches <= 0 or launches != sum(r["launches"] for r in
+                                        rows.values()):
+        raise AssertionError("the closed-loop grids' launches do not add up")
+    return {"launches": launches, "grids": rows, "bench4 libasl": b4}
+
+
+def resume_case(sl, name, cfg, axes, slo, product, want) -> tuple:
+    """A grid's one-shot sweep (held to its JAX digest ``want``), then
+    resumable in each of RESUME_CHUNKS' slices, its last slices'
+    checkpoints deleted and resumed, each bit-equal to the one-shot, and
+    split over ``cuda:0`` in each of SPLITS, bit-equal too; -> (the
+    one-shot state, a resume directory of the grid)."""
+    import math
+    import shutil
+    import tempfile
+    one, _ = sl.sweep(cfg, axes, slo_us=slo, product=product, device="cuda")
+    got = full_digest(sl.to_reference(one))
+    n_cells = one.t.shape[0]
+    k0 = len(sl.sweep_log())
+    print(f"api {name}: {n_cells} cells, one-shot {sl.sweep_log()[-1]} "
+          f"{'bit-identical to' if got == want else 'DIFFERS from'} the JAX "
+          f"reference (sha256 {got[:16]})", flush=True)
+    if got != want:
+        raise AssertionError(f"api {name}: one-shot sweep differs from JAX")
+    kept = None
+    for chunk in RESUME_CHUNKS:
+        d = Path(tempfile.mkdtemp(prefix="repro_torch_resume_"))
+        n_slices = math.ceil(n_cells / chunk)
+        k0 = len(sl.sweep_log())
+        st, _ = sl.sweep(cfg, axes, slo_us=slo, product=product,
+                         device="cuda", resume_dir=d, resume_chunk=chunk)
+        whole = sl.sweep_log()[k0:]
+        bad, _ = leaf_diff(st, one)
+        cut = max(1, n_slices // 2)
+        for k in range(n_slices - cut, n_slices):
+            shutil.rmtree(d / f"step_{k}")
+        k0 = len(sl.sweep_log())
+        st, _ = sl.sweep(cfg, axes, slo_us=slo, product=product,
+                         device="cuda", resume_dir=d, resume_chunk=chunk)
+        resumed = sl.sweep_log()[k0:]
+        bad2, _ = leaf_diff(st, one)
+        print(f"api {name} resumable, chunks of {chunk}: {n_slices} slices, "
+              f"{sum(r['launches'] for r in whole)} launches "
+              f"({[r['launches'] for r in whole]}), differing leaves: "
+              f"{bad or 'none'}; {cut} slices' checkpoints deleted and "
+              f"resumed: {len(resumed)} slices run, "
+              f"{sum(r['launches'] for r in resumed)} launches, differing "
+              f"leaves: {bad2 or 'none'}", flush=True)
+        if bad or bad2 or len(resumed) != cut:
+            raise AssertionError(f"api {name}: resumed sweep != one-shot")
+        if kept is None:
+            kept = d
+        else:
+            shutil.rmtree(d, ignore_errors=True)
+    for k in SPLITS:
+        k0 = len(sl.sweep_log())
+        st, _ = sl.sweep(cfg, axes, slo_us=slo, product=product,
+                         devices=["cuda:0"] * k)
+        rec = sl.sweep_log()[k0]
+        bad, _ = leaf_diff(st, one)
+        print(f"api {name} split over {k} x cuda:0: {rec['n_cells']} cells "
+              f"padded, {rec['launches']} launches, differing leaves: "
+              f"{bad or 'none'}", flush=True)
+        if bad or rec["devices"] != k:
+            raise AssertionError(f"api {name}: split sweep != unsplit")
+    return one, kept
+
+
+def phase_api(sl, simstep, closed) -> dict:
+    """Phase 3f: the simulator's API on the card, with the ``fused_chunk``
+    counter set to 0 just before and read just after.  Resumable and
+    split sweeps of Bench-4's libasl grid and of the loadlat cut
+    (:func:`resume_case`); a directory that holds another sweep refused;
+    ``sweep_slo`` over Figure 8b's SLOs and the ``amp_config`` grid, each
+    held to its JAX digest; fig1's registered policies one executable
+    each; the phase's ``sweep_log()`` and ``executable_records()``."""
+    import shutil
+    import torch
+    from repro_torch.core.policies import REGISTRY
+    from repro_torch.workloads import clients, generators
+    t0 = time.time()
+    simstep.fused_chunk.launches = 0
+    k_start, e_start = len(sl.sweep_log()), sl.n_batch_executables()
+    _, cfg, axes, slo, product = closed["bench4 libasl"]
+    _, b4_dir = resume_case(sl, "bench4 libasl", cfg, axes, slo, product,
+                            FIGURE_DIGESTS["bench4 libasl"])
+    name, cfg2, axes2, slo2, product2 = cut_grid(load_grids(sl)[0])
+    _, cut_dir = resume_case(sl, name, cfg2, axes2, slo2, product2,
+                             CUT_DIGESTS[name])
+    try:
+        sl.sweep(cfg2, axes2, slo_us=slo2, product=product2, device="cuda",
+                 resume_dir=b4_dir, resume_chunk=RESUME_CHUNKS[0])
+    except ValueError as e:
+        print(f"api: the loadlat cut resumed into Bench-4's directory "
+              f"refused: {e}", flush=True)
+    else:
+        raise AssertionError("a resume_dir of another sweep was not refused")
+    finally:
+        shutil.rmtree(b4_dir, ignore_errors=True)
+        shutil.rmtree(cut_dir, ignore_errors=True)
+    st = sl.sweep_slo(fig8b_cfg(sl), FIG8B_SLOS, device="cuda")
+    got = full_digest(sl.to_reference(st))
+    same = got == FIGURE_DIGESTS["figure8b sweep_slo"]
+    print(f"api sweep_slo, Figure 8b's {len(FIG8B_SLOS)} SLOs: "
+          f"{sl.sweep_log()[-1]}; {'bit-identical to' if same else 'DIFFERS from'}"
+          f" the JAX reference (sha256 {got[:16]})", flush=True)
+    if not same:
+        raise AssertionError("sweep_slo differs from JAX")
+    amp = amp_grid(sl, clients, generators)
+    amp_row, summ = figure_run(sl, simstep, *amp)
+    print(f"  amp_config columns: slo_scale {amp[1].slo_scale}, "
+          f"wl_service_per_core {amp[1].wl_service_per_core}", flush=True)
+    # fig1's registered policies: one executable each, none on a repeat.
+    grids = [(p, fig_cfg(sl, p, **FIG1_KW.get(p, {})), FIG1_SLO.get(p, 1e9))
+             for p in REGISTRY]
+    k0 = len(sl.sweep_log())
+    for _, cfg, slo in grids:
+        sl.sweep(cfg, {"n_cores": list(range(1, 9))}, slo_us=slo,
+                 device="cuda")
+    recs = sl.sweep_log()[k0:]
+    n1 = sl.n_batch_executables()
+    for _, cfg, slo in grids:
+        sl.sweep(cfg, {"n_cores": list(range(1, 9))}, slo_us=slo,
+                 device="cuda")
+    names = [r["instantiation"] for r in recs]
+    print(f"api fig1's {len(grids)} registered policies: instantiations "
+          f"{names}; executables loaded {n1}, after the same ten sweeps "
+          f"again {sl.n_batch_executables()}", flush=True)
+    if len(set(names)) != len(grids) or sl.n_batch_executables() != n1:
+        raise AssertionError("fig1's registered policies do not load one "
+                             "executable each")
+    torch.cuda.synchronize()
+    launches = simstep.fused_chunk.launches
+    log = sl.sweep_log()[k_start:]
+    print(f"api sweep_log(): {len(log)} records this phase", flush=True)
+    for r in log:
+        print(f"  {r}")
+    execs = sl.executable_records()[e_start:]
+    print(f"api executable_records(): {len(execs)} loaded this phase, "
+          f"{sl.n_batch_executables()} in all", flush=True)
+    for r in execs:
+        print(f"  {r}")
+    print(f"api: {launches} fused_chunk launches; phase 3f "
+          f"{time.time() - t0:.1f} s", flush=True)
+    if launches <= 0:
+        raise AssertionError("phase 3f launched no fused_chunk kernel")
+    return {"launches": launches, "amp": amp_row}
+
+
+def phase_example() -> None:
+    """Phase 3g: ``examples/lock_microbench_torch.py`` once, in its own
+    process, on the card: it must exit 0, print its six tables and
+    report ``fused_chunk`` launches."""
+    cmd = [sys.executable, "examples/lock_microbench_torch.py"]
+    print("$ " + " ".join(cmd[1:]), flush=True)
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=600, env={**os.environ,
+                                           "PYTHONPATH": str(ROOT / "src")})
+    for line in res.stdout.splitlines():
+        print(f"  {line}")
+    wall = time.perf_counter() - t0
+    print(f"  (exit {res.returncode} in {wall:.1f} s; phase 3g)", flush=True)
+    tables = sum(line.startswith("==") for line in res.stdout.splitlines())
+    launched = [int(line.split()[-1]) for line in res.stdout.splitlines()
+                if line.startswith("fused_chunk launches:")]
+    if res.returncode != 0 or tables != 6 or not launched or \
+            launched[0] <= 0:
+        print(res.stderr[-4000:], file=sys.stderr)
+        raise AssertionError("examples/lock_microbench_torch.py failed")
 
 
 def mlstm_inputs(gen, b, h, s, dh, dtype, carry, model_layout=False):
@@ -3238,6 +3616,23 @@ def phase_train_profile(out) -> None:
                              "reckoned")
 
 
+class Laps:
+    """Each phase's wall time (since the previous lap), for the record."""
+
+    def __init__(self):
+        self.t0 = self.t = time.time()
+        self.laps = {}
+
+    def lap(self, name: str) -> None:
+        now = time.time()
+        self.laps[name] = round(now - self.t, 1)
+        self.t = now
+
+    def line(self) -> str:
+        return (f"phase times (s): {self.laps}; total "
+                f"{time.time() - self.t0:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -3260,6 +3655,7 @@ def main() -> int:
               f"the repository root", file=sys.stderr)
         return 1
     try:
+        laps = Laps()
         card = card_line()
         print(card, flush=True)
         t0 = time.time()
@@ -3280,17 +3676,31 @@ def main() -> int:
             raise AssertionError("fused_chunk keeps a stack frame")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        laps.lap("1 build")
         phase_parity(sl, simstep)
+        laps.lap("2 parity")
         shape = phase_main_shape(sl, simstep)
         main_run = phase_main(sl, simstep)
+        laps.lap("2-3 main path")
         figures = phase_figures(sl, simstep)
+        laps.lap("3b")
         load = phase_load_figures(sl, simstep)
+        laps.lap("3c")
         keyshard = phase_keyshard(sl, simstep)
+        laps.lap("3d")
+        closed = phase_closed(sl, simstep)
+        laps.lap("3e")
+        api = phase_api(sl, simstep, closed)
+        laps.lap("3f")
+        phase_example()
+        laps.lap("3g")
         mlstm = phase_mlstm(ms, build)
         serve_run = phase_serve(ms)
         phase_model(ms)
+        laps.lap("4-6 xlstm-125m")
         flash = phase_flash(fa)
         dec = phase_decode(da)
+        laps.lap("7-8 attention")
         params = phase_yi_model(fa, da)
         yi_launches, rate, slo = phase_serve_once(
             YI, {"flash_attention": fa.flash_attention,
@@ -3299,6 +3709,7 @@ def main() -> int:
         del params
         torch.cuda.empty_cache()
         phase_yi_cli(rate, slo)
+        laps.lap("9-10 yi-6b")
         rglru = phase_rglru(rs, build)
         params = phase_rg_model(rs, fa, da)
         rg_launches, _, _ = phase_serve_once(
@@ -3311,6 +3722,7 @@ def main() -> int:
                                  f"rglru_scan prefill: {rg_launches}")
         del params
         torch.cuda.empty_cache()
+        laps.lap("11-13 recurrentgemma-2b")
         t0 = time.time()
         flash_bwd = phase_flash_bwd(fa, fb)
         rglru_bwd = phase_rglru_bwd(rs)
@@ -3335,6 +3747,7 @@ def main() -> int:
         train_launches = trained["launches"]
         del trained
         torch.cuda.empty_cache()
+        laps.lap("14-19 training")
     except Exception:
         traceback.print_exc()
         return 1
@@ -3426,12 +3839,16 @@ def main() -> int:
                 "fig1 main path": main_run["launches"],
                 "figure grids": figures["launches"],
                 "load figures": load["launches"],
-                "keyshard figure": keyshard["launches"]}
+                "keyshard figure": keyshard["launches"],
+                "closed-loop figures": closed["launches"],
+                "simulator API": api["launches"]}
             row["figures"] = {k: {f: r[f] for f in (
                 "instantiation", "cells", "events", "launches", "wall_s",
-                "events_per_s", "ms", "bound_ms", "bound_by")}
+                "events_per_s", "ms", "bound_ms", "bound_by") if f in r}
                 for k, r in {**figures["grids"], **load["grids"],
-                             **keyshard["grids"]}.items()}
+                             **keyshard["grids"], **closed["grids"],
+                             "amp_config libasl": api["amp"]}.items()}
+    print(laps.line(), flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

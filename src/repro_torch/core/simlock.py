@@ -42,6 +42,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import math
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -61,6 +62,7 @@ from repro_torch.workloads import generators as wlg
 from repro_torch.workloads import keys as wlk
 from repro_torch.workloads.generators import PRNGKey, uniform
 from repro_torch.device import resolve as _device
+from repro_torch.dist.sharding import row_splits
 
 POLICIES = policies.policy_ids()
 
@@ -902,12 +904,35 @@ def run_chunks(cfg: SimConfig, pm: SimParams, st: SimState, launch,
                group: int = 1) -> int:
     """Call ``launch()`` (one chunk of every cell) until no cell is live,
     checking on the host once per ``group`` calls; -> the calls made."""
-    calls = 0
-    while bool(_live_cells(cfg, pm, st).any()):
-        for _ in range(group):
-            launch()
-        calls += group
-    return calls
+    return _run_blocks(cfg, [(pm, st, launch, group)])[0]
+
+
+def _run_blocks(cfg: SimConfig, blocks: list) -> list:
+    """:func:`run_chunks` over several blocks of cells, each
+    ``(pm, st, launch, group)``, their groups of launches interleaved (a
+    split sweep's blocks on their devices); -> the calls made a block."""
+    calls = [0] * len(blocks)
+    live = list(range(len(blocks)))
+    while True:
+        live = [i for i in live
+                if bool(_live_cells(cfg, *blocks[i][:2]).any())]
+        if not live:
+            return calls
+        for i in live:
+            launch, group = blocks[i][2:]
+            for _ in range(group):
+                launch()
+            calls[i] += group
+
+
+def _launcher(cfg: SimConfig, tb: SimTables, pm: SimParams, st: SimState,
+              chunk_fn=None) -> tuple:
+    """(one chunk of every cell of ``st``, launches a liveness check)."""
+    if chunk_fn is not None:
+        return (lambda: chunk_fn(tb, pm, st, cfg.chunk, cfg)), 1
+    from repro_torch.kernels import simstep
+    return simstep.bind(tb, pm, st, cfg.chunk, cfg), \
+        LIVENESS_GROUP if st.t.device.type == "cuda" else 1
 
 
 def simulate(cfg: SimConfig, tb: SimTables, pm: SimParams, st: SimState,
@@ -919,16 +944,7 @@ def simulate(cfg: SimConfig, tb: SimTables, pm: SimParams, st: SimState,
     By default the operands are checked once (``simstep.bind``) and, on
     CUDA tensors, liveness once per ``LIVENESS_GROUP`` launches; on CPU
     tensors, and with a given ``chunk_fn``, after every chunk."""
-    group = 1
-    if chunk_fn is None:
-        from repro_torch.kernels import simstep
-        launch = simstep.bind(tb, pm, st, cfg.chunk, cfg)
-        if st.t.device.type == "cuda":
-            group = LIVENESS_GROUP
-    else:
-        def launch():
-            chunk_fn(tb, pm, st, cfg.chunk, cfg)
-    run_chunks(cfg, pm, st, launch, group)
+    run_chunks(cfg, pm, st, *_launcher(cfg, tb, pm, st, chunk_fn))
     return st
 
 
@@ -1140,6 +1156,72 @@ def _grid_cells(cfg: SimConfig, axes: dict, product: bool) -> list:
     return cells
 
 
+def _host_windows(windows0) -> np.ndarray:
+    """A ``windows0`` (numpy, list, or a tensor on any device) as f32."""
+    if isinstance(windows0, torch.Tensor):
+        windows0 = windows0.detach().cpu().numpy()
+    return np.asarray(windows0, np.float32)
+
+
+def _host_cells(cfg: SimConfig, cells: list, names, slo_us, seed,
+                windows0) -> tuple:
+    """The host values of ``cells``, each with a leading cell axis, in
+    numpy: ``(tables, params, windows)`` (``tables["col"]`` and
+    ``params["pol"]`` dicts of arrays), as ``init_sweep`` uploads them.
+    ``names`` are the sweep's axes."""
+    b = len(cells)
+    tbl_axes = table_axes()
+    table_keys = [k for k in names if k in tbl_axes]
+    if table_keys:
+        hs = [_tables_host(_cell_tables_cfg(cfg, cell, table_keys))
+              for cell in cells]
+
+        def cat(get):
+            return np.stack([get(h) for h in hs])
+    else:
+        h1 = _tables_host(cfg)
+
+        def cat(get):
+            a = get(h1)
+            return np.broadcast_to(a, (b,) + np.shape(a))
+    tables = {k: {c: cat(lambda h, c=c: h["col"][c]) for c in colreg.COLUMNS}
+              if k == "col" else cat(lambda h, k=k: h[k])
+              for k in SimTables._fields}
+    per = [_cell_params(cfg, cell, slo_us, seed) for cell in cells]
+    params = {k: np.asarray([p[k] for p in per], np.int32
+                            if k in _I32_PARAMS else np.float32)
+              for k in per[0] if k != "pol"}
+    params["pol"] = {k: np.stack([p["pol"][k] for p in per])
+                     for k in per[0]["pol"]}
+    base_w = _default_windows(cfg) if windows0 is None else \
+        _host_windows(windows0)
+    w0 = np.stack([
+        np.full(cfg.n_cores, ticks(cell["window0_us"]), np.float32)
+        if "window0_us" in cell else base_w for cell in cells])
+    return tables, params, w0
+
+
+def _upload(cfg: SimConfig, host: tuple, lo: int, hi: int, dev) -> tuple:
+    """Cells ``lo:hi`` of :func:`_host_cells`' values on ``dev``:
+    ``(tb, pm, st)``, the state initial."""
+    tables, params, w0 = host
+
+    def up(x):
+        return {k: _tensor(v[lo:hi], dev) for k, v in x.items()} \
+            if isinstance(x, dict) else _tensor(x[lo:hi], dev)
+
+    tb = SimTables(**{k: up(v) for k, v in tables.items()})
+    pm = SimParams(**{k: up(v) for k, v in params.items()})
+    return tb, pm, _init_state(cfg, tb, pm, _tensor(w0[lo:hi], dev))
+
+
+def _grid(cells: list, names) -> dict:
+    tbl_axes = table_axes()
+    return {k: np.asarray([cell[k] for cell in cells], dtype=object)
+            if k in tbl_axes else np.asarray([cell[k] for cell in cells])
+            for k in names}
+
+
 def init_sweep(cfg: SimConfig, axes: dict, *, slo_us=1e9, seed=0,
                windows0=None, product: bool = True, device=None):
     """Tables, params and initial state of a sweep's cells, on ``device``.
@@ -1152,45 +1234,176 @@ def init_sweep(cfg: SimConfig, axes: dict, *, slo_us=1e9, seed=0,
                          "axes) gives; pass that to init_sweep and "
                          "simulate")
     cells = _grid_cells(cfg, axes, product)
-    b = len(cells)
-    tbl_axes = table_axes()
-    table_keys = [k for k in axes if k in tbl_axes]
-    if table_keys:
-        hs = [_tables_host(_cell_tables_cfg(cfg, cell, table_keys))
-              for cell in cells]
+    host = _host_cells(cfg, cells, axes, slo_us, seed, windows0)
+    return (*_upload(cfg, host, 0, len(cells), dev), _grid(cells, axes))
 
-        def cat(get):
-            return _tensor(np.stack([get(h) for h in hs]), dev)
+
+def init_state(cfg: SimConfig, seed: int = 0, windows0=None,
+               device=None) -> SimState:
+    """One run's initial state, without the cell axis (as :func:`run`
+    returns its state): params at SLO 0, as the reference's
+    ``init_state`` builds them."""
+    host = _host_cells(cfg, [{}], (), 0.0, seed, windows0)
+    return _cell(_upload(cfg, host, 0, 1, _device(device))[2], 0)
+
+
+# --------------------------------------------------------------------------
+# Sweep accounting: one record per sweep call, and the executables loaded
+# --------------------------------------------------------------------------
+
+_BATCH_EXECS: dict = {}          # signature -> the first call's record
+_BATCH_LOCK = threading.Lock()   # the dict and the log
+_SWEEP_LOG: list = []
+MAX_SWEEP_LOG = 4096
+
+
+def _account(cfg: SimConfig, blocks: list, calls: list, devices: list,
+             n_cells: int) -> dict:
+    """Record a sweep call (or one resumed slice) whose ``blocks`` of
+    ``(tb, pm, st)`` ran to their end in ``calls`` launches each, and
+    register its executable; -> the record."""
+    from repro_torch.kernels import simstep
+    tb, pm, st = blocks[0]
+    key = (simstep.signature(tb, pm, st, cfg),
+           tuple(str(d) for d in devices))
+    launches = sum(calls)
+    moved = sum(simstep.launch_bytes(tb, pm, None, st, cfg, n) * n
+                for (tb, pm, st), n in zip(blocks, calls) if n)
+    rec = {"instantiation": simstep.instantiation_name(cfg),
+           "n_cells": n_cells, "devices": len(devices),
+           "launches": launches,
+           "events": sum(int(b[2].events.sum()) for b in blocks),
+           "launch_bytes": moved / launches if launches else 0.0}
+    with _BATCH_LOCK:
+        _BATCH_EXECS.setdefault(key, rec)
+        _SWEEP_LOG.append(rec)
+        if len(_SWEEP_LOG) > MAX_SWEEP_LOG:  # bound long-lived processes
+            del _SWEEP_LOG[:-MAX_SWEEP_LOG]
+    return rec
+
+
+def n_batch_executables() -> int:
+    """Distinct executables loaded so far: a ``fused_chunk`` instantiation
+    (``simstep.instantiation``; deterministic or stochastic, keyed or
+    not) at one operand signature (the operands it passes, their shapes
+    and dtypes, the devices).  The perf protocol: fig1's registered
+    policies give one each."""
+    return len(_BATCH_EXECS)
+
+
+def executable_records() -> list:
+    """Per-executable records in load order, each the record of the
+    first sweep call that ran it (:func:`sweep_log`'s keys).
+
+    The reference's records hold XLA's cost analysis (``flops``,
+    ``bytes_accessed``) and the collective schedule of a mesh-sharded
+    sweep; the port compiles no XLA and fakes none of them.  In their
+    place: ``events`` (the work), ``launch_bytes`` (the bytes a launch
+    must move, ``simstep.launch_bytes``: every cell that retires an event
+    reads its tables, params and state once and writes its state once,
+    plus the ring samples and histogram counts) and ``launches``; a split
+    sweep gathers its blocks by copies, with no collective."""
+    with _BATCH_LOCK:
+        return list(_BATCH_EXECS.values())
+
+
+def sweep_log() -> list:
+    """One record per :func:`sweep` call (cache hits included; a
+    resumable sweep one per slice it runs): ``instantiation``,
+    ``n_cells``, ``devices``, ``launches`` (the calls ``run_chunks``
+    made), ``events`` and ``launch_bytes``.  Holds the most recent
+    ``MAX_SWEEP_LOG`` calls."""
+    with _BATCH_LOCK:
+        return list(_SWEEP_LOG)
+
+
+def _run_cells(cfg: SimConfig, blocks: list, devices: list,
+               n_cells: int) -> None:
+    """Run ``blocks`` of ``(tb, pm, st)`` to their end and record it."""
+    calls = _run_blocks(cfg, [(pm, st, *_launcher(cfg, tb, pm, st))
+                              for tb, pm, st in blocks])
+    _account(cfg, blocks, calls, devices, n_cells)
+
+
+def _concat(parts: list, dev, n: int) -> SimState:
+    """The states of consecutive blocks of cells as one, on ``dev``,
+    its first ``n`` cells."""
+    if len(parts) == 1 and parts[0].t.device == dev:
+        cat = parts[0]
     else:
-        h1 = _tables_host(cfg)
+        def join(xs):
+            return torch.cat([x.to(dev) for x in xs])
 
-        def cat(get):
-            a = get(h1)
-            return _tensor(np.broadcast_to(a, (b,) + np.shape(a)), dev)
-    tb = SimTables(**{k: {c: cat(lambda h, c=c: h["col"][c])
-                          for c in colreg.COLUMNS}
-                      if k == "col" else cat(lambda h, k=k: h[k])
-                      for k in SimTables._fields})
-    per = [_cell_params(cfg, cell, slo_us, seed) for cell in cells]
-    pol = {k: _tensor(np.stack([p["pol"][k] for p in per]), dev)
-           for k in per[0]["pol"]}
-    pm = SimParams(**{k: _tensor(np.asarray(
-        [p[k] for p in per], np.int32 if k in _I32_PARAMS else np.float32),
-        dev) for k in per[0] if k != "pol"}, pol=pol)
-    base_w = _default_windows(cfg) if windows0 is None else \
-        np.asarray(windows0, np.float32)
-    w0 = np.stack([
-        np.full(cfg.n_cores, ticks(cell["window0_us"]), np.float32)
-        if "window0_us" in cell else base_w for cell in cells])
-    st = _init_state(cfg, tb, pm, _tensor(w0, dev))
-    grid = {k: np.asarray([cell[k] for cell in cells], dtype=object)
-            if k in tbl_axes else np.asarray([cell[k] for cell in cells])
-            for k in axes}
-    return tb, pm, st, grid
+        cat = SimState(**{
+            k: {n_: join([p.pol[n_] for p in parts]) for n_ in parts[0].pol}
+            if k == "pol" else join([getattr(p, k) for p in parts])
+            for k in SimState._fields})
+    if cat.t.shape[0] == n:
+        return cat
+    return SimState(**{k: {n_: x[:n] for n_, x in v.items()} if k == "pol"
+                       else v[:n] for k, v in cat._asdict().items()})
+
+
+def _sweep_resumable(cfg: SimConfig, host: tuple, dev, resume_dir,
+                     chunk: int) -> SimState:
+    """Run the sweep's cells in ``chunk``-cell slices, saving each
+    finished slice atomically (``repro_torch.ckpt.checkpointer``), so an
+    interrupted sweep resumes from its last saved slice.  Each cell's
+    trajectory is its own (the kernel runs a cell a warp and a finished
+    cell's launches change nothing), so a slice's cells end as they do in
+    the whole sweep, bit for bit."""
+    import hashlib
+    import json
+    from pathlib import Path
+
+    from repro_torch import tree
+    from repro_torch.ckpt import checkpointer as ckpt
+
+    n_cells = len(host[2])
+    chunk = max(int(chunk), 1)
+    bounds = [(lo, min(lo + chunk, n_cells))
+              for lo in range(0, n_cells, chunk)]
+    first = _upload(cfg, host, *bounds[0], dev)
+    # Fingerprint the sweep: resuming into a directory that holds another
+    # config or grid (or one the JAX package wrote) would splice unrelated
+    # results.  The digest covers every value uploaded; the name lists
+    # and the leaves' shapes and dtypes catch what values cannot.
+    h = hashlib.sha256()
+    for x in tree.leaves(host):
+        h.update(np.ascontiguousarray(x).tobytes())
+    fp = {"canon": repr(cfg), "n_cells": n_cells, "chunk": chunk,
+          "digest": h.hexdigest(),
+          "columns": sorted(host[0]["col"]), "pol": sorted(host[1]["pol"]),
+          "leaves": [[list(np.shape(x)), np.asarray(x).dtype.name]
+                     for x in tree.leaves(host[:2])]
+          + [[list(x.shape[1:]), str(x.dtype).removeprefix("torch.")]
+             for x in tree.leaves(first[2])]}
+    d = Path(resume_dir)
+    d.mkdir(parents=True, exist_ok=True)
+    fp_path = d / "sweep.json"
+    if fp_path.exists():
+        if json.loads(fp_path.read_text()) != fp:
+            raise ValueError(
+                f"resume_dir {str(resume_dir)!r} holds a different sweep "
+                f"(config or grid changed); use a fresh directory")
+    else:
+        fp_path.write_text(json.dumps(fp))
+    done = ckpt.latest_step(d)          # slices 0..done are on disk
+    parts = []
+    for k, (lo, hi) in enumerate(bounds):
+        tb, pm, st = first if k == 0 else _upload(cfg, host, lo, hi, dev)
+        if done is not None and k <= done:
+            parts.append(ckpt.restore(d, k, st))
+            continue
+        _run_cells(cfg, [(tb, pm, st)], [dev], hi - lo)
+        ckpt.save(d, k, st)
+        parts.append(st)
+    return _concat(parts, dev, n_cells)
 
 
 def sweep(cfg: SimConfig, axes: dict, *, slo_us=1e9, seed=0,
-          windows0=None, product: bool = True, device=None):
+          windows0=None, product: bool = True, device=None, devices=None,
+          resume_dir=None, resume_chunk: int = 8):
     """Run a whole parameter sweep as one batch of cells.
 
     ``axes`` maps axis names (see ``SWEEPABLE``) to value lists.  With
@@ -1201,15 +1414,60 @@ def sweep(cfg: SimConfig, axes: dict, *, slo_us=1e9, seed=0,
     A ``policy`` axis runs its policies as one merged set, and sweeping
     a gated feature turns it on (:func:`sweep_config`).
 
+    ``devices`` (a sequence of devices, repeats allowed) splits the
+    cells over them, the port's counterpart of the reference's ``mesh``
+    / ``data_axis`` (a 1-D data mesh): the cells are padded to a multiple
+    of the device count by repeating the last cell, each device runs a
+    contiguous block of them (``repro_torch.dist.sharding.row_splits``;
+    the blocks' launches interleaved from this thread), and the result
+    is gathered on ``devices[0]`` and trimmed, bit-identical to the
+    unsplit sweep.  ``device`` is then not used.
+
+    ``resume_dir`` makes a long sweep resumable: cells run in
+    ``resume_chunk``-cell slices, each saved atomically when it finishes
+    (``repro_torch.ckpt.checkpointer``, beside a ``sweep.json``
+    fingerprint); the same sweep with the same directory restores the
+    saved slices and runs the rest, bit-identical to an uninterrupted
+    run.  A directory that holds another sweep raises.  Not composable
+    with ``devices``.
+
+    Each call is recorded (:func:`sweep_log`, :func:`executable_records`).
+
     Returns ``(state, grid)``: ``state`` leaves have a leading cell axis;
     ``grid`` maps axis name -> np.ndarray of per-cell values (object
     arrays for table axes, as the reference gives them).
     """
+    if resume_dir is not None and devices is not None:
+        raise ValueError("resume_dir does not compose with split sweeps "
+                         "(devices=); run chunked-resumable sweeps unsplit")
     cfg = sweep_config(cfg, axes)
-    tb, pm, st, grid = init_sweep(cfg, axes, slo_us=slo_us, seed=seed,
-                                  windows0=windows0, product=product,
-                                  device=device)
-    return simulate(cfg, tb, pm, st), grid
+    cells = _grid_cells(cfg, axes, product)
+    grid, n_cells = _grid(cells, axes), len(cells)
+    if devices is None:
+        devs = [_device(device)]
+    else:
+        devs = [torch.device(d) for d in devices]
+        if not devs:
+            raise ValueError("devices must name at least one device")
+        cells = cells + cells[-1:] * ((-n_cells) % len(devs))
+    host = _host_cells(cfg, cells, axes, slo_us, seed, windows0)
+    if resume_dir is not None:
+        return _sweep_resumable(cfg, host, devs[0], resume_dir,
+                                resume_chunk), grid
+    blocks, lo = [], 0
+    for dev, rows in zip(devs, row_splits(len(cells), len(devs))):
+        blocks.append(_upload(cfg, host, lo, lo + rows, dev))
+        lo += rows
+    _run_cells(cfg, blocks, devs, len(cells))
+    return _concat([b[2] for b in blocks], devs[0], n_cells), grid
+
+
+def sweep_slo(cfg: SimConfig, slo_us_values, seed=0,
+              device=None) -> SimState:
+    """Paper Figure 8b in one call (a thin wrapper over :func:`sweep`)."""
+    st, _ = sweep(cfg, {"slo_us": list(np.asarray(slo_us_values, float))},
+                  seed=seed, device=device)
+    return st
 
 
 def _cell(st: SimState, i: int) -> SimState:
@@ -1220,7 +1478,8 @@ def _cell(st: SimState, i: int) -> SimState:
 def run(cfg: SimConfig, slo_us, seed=0, windows0=None,
         device=None) -> SimState:
     """Run one simulation: a sweep of one cell, returned without the cell
-    axis (``windows0`` carries AIMD windows across phases)."""
+    axis (``windows0`` carries AIMD windows across phases, from numpy or
+    from a previous run's ``window`` on any device)."""
     st, _ = sweep(cfg, {"seed": [seed]}, slo_us=slo_us, windows0=windows0,
                   device=device)
     return _cell(st, 0)

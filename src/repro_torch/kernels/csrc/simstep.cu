@@ -1718,18 +1718,38 @@ int launch(const A& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The instantiations this library holds: bit 4 P + 2 ST + K of the mask
+// (K: it takes ArgsK).  The build compiles the source once per group of
+// instantiations (kernels/build.py, SIMSTEP_GROUPS), each group a library
+// of its own and all in parallel; a launch loads its group's.  Without
+// the macro every instantiation is compiled.
+#ifndef SIMSTEP_BUILT
+#define SIMSTEP_BUILT (~0ull)
+#endif
+constexpr bool built(int p, bool st, bool k) {
+  return ((SIMSTEP_BUILT) >> (4 * p + 2 * st + k)) & 1ull;
+}
+
+template <int P, bool ST, typename A>
+int launch_built(const A& a, cudaStream_t st) {
+  if constexpr (built(P, ST, std::is_same<A, ArgsK>::value))
+    return launch<P, ST>(a, st);
+  else
+    return static_cast<int>(cudaErrorInvalidDeviceFunction);
+}
+
 // An instantiation takes ArgsK where the launch is keyed (keys on, or a
 // ks_* policy in the cell's set): always for the ks_* policies, never for
 // the seven others' deterministic ones; the rest have both.
 template <int P, bool ST>
 int launch_args(const ArgsK& a, bool keyed, cudaStream_t st) {
   if constexpr (P == kKsErew || P == kKsCrew || P == kKsJbsq)
-    return launch<P, ST>(a, st);
+    return launch_built<P, ST>(a, st);
   else if constexpr (!ST && P != kMerged)
-    return launch<P, ST>(static_cast<const Args&>(a), st);
+    return launch_built<P, ST>(static_cast<const Args&>(a), st);
   else
-    return keyed ? launch<P, ST>(a, st)
-                 : launch<P, ST>(static_cast<const Args&>(a), st);
+    return keyed ? launch_built<P, ST>(a, st)
+                 : launch_built<P, ST>(static_cast<const Args&>(a), st);
 }
 
 template <bool ST>

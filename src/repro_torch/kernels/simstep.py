@@ -264,8 +264,66 @@ def instantiation(cfg) -> int:
     return policy_ids()[cfg.policy]
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load("simstep")
+def instantiation_name(cfg) -> str:
+    """The instantiation a launch under ``cfg`` runs, readable:
+    ``"libasl"``, ``"merged stochastic"``, ``"ks_crew stochastic keyed"``."""
+    return ("merged" if cfg.policy_set else cfg.policy) + (
+        " stochastic" if stochastic(cfg) else "") + (
+        " keyed" if keyed(cfg) else "")
+
+
+def signature(tables, params, state, cfg) -> tuple:
+    """What makes a launch another executable: its instantiation
+    (:func:`instantiation`, :func:`stochastic`, :func:`keyed`), the
+    operands it passes with their shapes and dtypes, and the device."""
+    ts, _ = _operands(tables, params, state, cfg)
+    return (instantiation(cfg), stochastic(cfg), keyed(cfg),
+            str(state.t.device),
+            tuple((k, tuple(x.shape), str(x.dtype)) for k, x in ts.items()))
+
+
+def launch_bytes(tables, params, before, after, cfg, launches: int) -> float:
+    """Bytes one of ``launches`` launches must move, on average, to take
+    the cells from ``before`` to ``after`` (``before=None``: from the
+    initial state, whose counters are all 0): in each launch every cell
+    that retires an event reads the kernel's tables, params and state
+    (rings and histograms excepted) once and writes its state once; each
+    recorded latency writes one 4-byte ring sample, and each histogram
+    sample reads and writes one 4-byte count."""
+    ts, _ = _operands(tables, params, after, cfg)
+    state = set(simlock.SimState._fields) | set(_POL_STATE)
+    skip = {"ep_lat", "cs_lat", "ep_hist", "cs_hist"}
+    if not (cfg.p_cs or cfg.p_spin or cfg.p_park or cfg.p_idle):
+        skip |= {"energy", "p_cs", "p_spin", "p_park", "p_idle"}
+    if not cfg.long_epoch_prob > 0.0:
+        state.discard("scale")           # read, not written back
+    per_cell = sum((2 if k in state else 1) * x[0].numel() * x.element_size()
+                   for k, x in ts.items() if k not in skip)
+
+    def grown(name):
+        a = getattr(after, name).long()
+        return a if before is None else a - getattr(before, name).long()
+
+    samples = int(grown("ep_cnt").sum() + grown("cs_cnt").sum())
+    counts = int(grown("ep_hist").sum() + grown("cs_hist").sum())
+    return int((grown("events") > 0).sum()) * per_cell + (
+        4 * samples + 8 * counts) / launches
+
+
+# (policy id or 10 for a merged set, stochastic, keyed) -> its library.
+_GROUP = {inst: g for g, group in enumerate(build.SIMSTEP_GROUPS)
+          for inst in group}
+
+
+def part(cfg) -> int:
+    """The library of ``csrc/simstep.cu`` (``build.SIMSTEP_GROUPS``) that
+    holds the instantiation a launch under ``cfg`` runs."""
+    p = instantiation(cfg)
+    return _GROUP[(10 if p == _MERGED else p, stochastic(cfg), keyed(cfg))]
+
+
+def _lib(cfg) -> ctypes.CDLL:
+    lib = build.load("simstep", part(cfg))
     fn = lib.simstep_fused_chunk
     if fn.argtypes is None:
         fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
@@ -302,7 +360,7 @@ def bind(tables, params, state, chunk: int, cfg):
         raise ValueError(f"a cell of {n} cores, {s} segments and {l} locks "
                          f"takes {size} bytes of shared memory, over one "
                          f"block's {_SMEM_LIMIT}")
-    lib = _lib()
+    lib = _lib(cfg)
     fn = lib.simstep_fused_chunk
     ptrs = _PTRS()                       # null where not passed
     for k, x in ts.items():

@@ -54,3 +54,49 @@ def test_the_attention_sources_link_the_driver_library():
     for name in ("flash_attention", "flash_attention_bwd"):
         assert "-lcuda" in build.flags(name)
     assert "-lcuda" not in build.flags("simstep")
+
+
+# fused_chunk's 31 instantiations (csrc/simstep.cu, launch_args): each
+# policy's deterministic one on Args (the ks_* policies' on ArgsK), the
+# merged set's on both; each stochastic one on both (ks_*: ArgsK only).
+INSTANTIATIONS = {(p, st, k) for p in range(11) for st in (False, True)
+                  for k in (False, True)
+                  if not (p in (7, 8, 9) and not k)
+                  and not (not st and p < 7 and k)}
+
+
+def test_simstep_groups_hold_every_instantiation_once():
+    groups = build.SIMSTEP_GROUPS
+    flat = [i for g in groups for i in g]
+    assert len(INSTANTIATIONS) == 31
+    assert sorted(flat) == sorted(INSTANTIATIONS)
+    assert build.parts("simstep") == len(groups) > 1
+    assert build.parts("flash_attention") == 1
+    masks = [int(build.flags("simstep", g)[-1].split("=")[1][:-3], 16)
+             for g in range(len(groups))]
+    assert sum(masks) == sum(1 << (4 * p + 2 * st + k)
+                             for p, st, k in INSTANTIATIONS)
+    assert len({build.lib_path("simstep", g) for g in range(len(groups))}) \
+        == len(groups)
+    assert [build.unit("simstep", g) for g in (0, 1)] == \
+        ["simstep.0", "simstep.1"]
+    assert build.unit("mlstm_scan", 0) == "mlstm_scan"
+
+
+@pytest.mark.parametrize("kw", [
+    dict(policy="libasl"), dict(policy_set=("fifo", "libasl")),
+    dict(policy_set=("fifo", "ks_crew")), dict(policy="ks_jbsq"),
+    dict(policy="tas", wl=True), dict(policy="edf", hist=True),
+    dict(policy="fifo", n_keys=64, n_locks=4),
+    dict(policy="ks_erew", preempt_rate=0.1),
+    dict(policy_set=("fifo", "libasl"), wl=True),
+    dict(policy_set=("fifo", "ks_crew"), wl=True)])
+def test_a_launch_loads_the_library_of_its_instantiation(kw):
+    from repro_torch.core import simlock as sl
+    from repro_torch.kernels import simstep
+    cfg = sl.SimConfig(**kw)
+    p = simstep.instantiation(cfg)
+    inst = (10 if p == -1 else p, simstep.stochastic(cfg),
+            simstep.keyed(cfg))
+    assert inst in INSTANTIATIONS
+    assert inst in build.SIMSTEP_GROUPS[simstep.part(cfg)]

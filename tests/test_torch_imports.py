@@ -1,6 +1,8 @@
 """The port stands alone: no module under ``src/repro_torch/`` (nor
-``chip_smoke.py``) imports ``jax`` or anything of the JAX package
-``repro``, and the package imports with both blocked."""
+``chip_smoke.py``, nor ``examples/lock_microbench_torch.py``) imports
+``jax``, anything of the JAX package ``repro`` or the JAX harness
+``benchmarks``, and the package and the example run with all three
+blocked."""
 
 import ast
 import os
@@ -9,8 +11,9 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+EXAMPLE = ROOT / "examples" / "lock_microbench_torch.py"
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py", EXAMPLE]
 
 
 def _imported_modules(path: Path) -> list:
@@ -25,7 +28,7 @@ def _imported_modules(path: Path) -> list:
 
 def _forbidden(mod: str) -> bool:
     top = mod.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "repro", "benchmarks")
 
 
 def test_port_files_exist():
@@ -67,6 +70,9 @@ def test_port_files_exist():
                  "src/repro_torch/core/energy.py",
                  "src/repro_torch/core/xla_math.py",
                  "src/repro_torch/faults/model.py",
+                 "src/repro_torch/dist/sharding.py",
+                 "src/repro_torch/workloads/clients.py",
+                 "examples/lock_microbench_torch.py",
                  "chip_smoke.py"):
         assert want in names
 
@@ -153,6 +159,53 @@ def test_port_imports_with_jax_and_repro_blocked():
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
+
+
+def test_example_imports_no_jax_repro_or_benchmarks():
+    mods = _imported_modules(EXAMPLE)
+    assert "repro_torch.core" in mods
+    assert [m for m in mods if _forbidden(m)] == []
+
+
+def test_example_runs_with_jax_repro_and_benchmarks_blocked():
+    """The example's sections and the port's new modules (clients, npz
+    traces, the split and resumable sweeps) run with ``jax``, ``repro``
+    and ``benchmarks`` unimportable."""
+    code = ("import sys, tempfile\n"
+            "for name in ('jax', 'jaxlib', 'repro', 'benchmarks'):\n"
+            "    sys.modules[name] = None\n"
+            f"sys.path.insert(0, {str(EXAMPLE.parent)!r})\n"
+            "import lock_microbench_torch as ex\n"
+            "ex.figure8b(slos=(40.0, 200.0), sim_time_us=300.0, "
+            "device='cpu')\n"
+            "ex.openloop(fracs=(0.4,), sim_time_us=300.0, device='cpu')\n"
+            "from repro_torch.core import simlock as sl\n"
+            "from repro_torch.dist.sharding import row_splits\n"
+            "from repro_torch.workloads import ClientClass, WorkloadMix\n"
+            "from repro_torch.workloads import clients, traces\n"
+            "m = WorkloadMix((ClientClass('a', slo=50.0, affinity='big'), "
+            "ClientClass('b', slo=500.0)))\n"
+            "cfg, _ = clients.amp_config(sl.SimConfig(policy='libasl', "
+            "sim_time_us=200.0), m, 50.0)\n"
+            "d = tempfile.mkdtemp()\n"
+            "st, _ = sl.sweep(cfg, {'seed': [0, 1, 2]}, slo_us=50.0, "
+            "device='cpu', resume_dir=d, resume_chunk=2)\n"
+            "sp, _ = sl.sweep(cfg, {'seed': [0, 1, 2]}, slo_us=50.0, "
+            "devices=['cpu'] * 2)\n"
+            "assert bool((st.events == sp.events).all())\n"
+            "assert row_splits(4, 2) == [2, 2]\n"
+            "tr = traces.generate(traces.ArrivalSpec('poisson', 5.0), None, "
+            "4.0, 1, classes=m)\n"
+            "back = traces.load(traces.save(d + '/t.npz', tr))\n"
+            "assert back.classes == ('a', 'b')\n"
+            "assert not any(m.split('.')[0] in ('jax', 'repro', "
+            "'benchmarks') for m, v in sys.modules.items() "
+            "if v is not None)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "Figure 8b" in res.stdout and "Open-loop" in res.stdout
 
 
 def test_no_library_attention_or_compiler_in_the_port():

@@ -106,9 +106,20 @@ def test_trace_generate_is_identical():
     for k in a.cols:
         assert np.array_equal(a.cols[k], b.cols[k])
     assert a.meta == b.meta and a.classes == b.classes and b.slo is None
-    with pytest.raises(NotImplementedError, match="clients"):
-        tt.generate(tg.ArrivalSpec(), tg.ServiceSpec(), 1.0, 0,
-                    classes=object())
+    # Multi-class traces are ported too (test_torch_clients.py holds them
+    # over more mixes): one two-class mix, identical.
+    from repro.workloads import clients as jc
+    from repro_torch.workloads import clients as tc
+    a, b = (mod.generate(g.ArrivalSpec("poisson", 20.0), None, 30.0, 9,
+                         classes=c.WorkloadMix((
+                             c.ClientClass("lc", 2.0, 0.5),
+                             c.ClientClass("be", 1.0, 5.0, g.ServiceSpec(
+                                 "exp", mean=0.3))))) for mod, g, c in (
+                (jt, jg, jc), (tt, tg, tc)))
+    for f in ("arrival_t", "service_s", "klass", "slo"):
+        x, y = getattr(a, f), getattr(b, f)
+        assert x.dtype == y.dtype and x.tobytes() == y.tobytes(), f
+    assert a.meta == b.meta and a.classes == b.classes == ("lc", "be")
 
 
 def test_schedulers_derive_from_the_registry():
