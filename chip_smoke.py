@@ -18,8 +18,11 @@ Phases, each of which fails the script (non-zero exit, no result line):
    on the fig1 and Bench-1 programs over a small grid; each again on the
    Bench-1 program with long epochs, the wakeup cost and the energy model
    on; the seven as one merged set (a ``policy`` axis) with the same
-   features; chunk 1 against chunk 128; and one launch at the main path's
-   shapes (timed, with its bound).
+   features; chunk 1 against chunk 128.  These comparisons, and those
+   of 3c and 3d below, run first, spread over ``PLAIN_WORKERS`` (4)
+   processes on the one card (``run_plain_jobs``): the plain step is
+   thousands of small launches a step, bound by the host.  Then one
+   launch at the main path's shapes (timed, with its bound).
 3. Drive the main path at full size through ``sweep``'s two parts,
    ``init_sweep`` and ``simulate``: the paper's fig1 calibration for
    60,000 us, one sweep per policy (2,120 cells), with the kernel launch
@@ -86,6 +89,11 @@ Phases, each of which fails the script (non-zero exit, no result line):
    phase's ``sweep_log()`` and ``executable_records()``.
 3g. ``examples/lock_microbench_torch.py`` once, in its own process: exit
    0, its six tables and its ``fused_chunk`` launches.
+3h. ``examples/serving_bench_torch.py``'s four sections (the fleet
+   dispatcher under every dispatch policy across its load sweep, the
+   serving engine's two sections and the staleness simulation; host-side
+   numpy) at ``SCALE = 1.0``, each section's rows held to the JAX
+   package's (``FLEET_DIGESTS``).
 4. Hold the ``mlstm_scan`` kernel against its plain PyTorch version on
    the card: f32 and bf16 inputs, with and without a carry, S in {1, 7,
    15, 16, 17, 256} (the ring's 16-step chunks' edges), dh in {32, 192},
@@ -159,6 +167,22 @@ Phases, each of which fails the script (non-zero exit, no result line):
     and ``decode_attention`` counters set to 0 just before and read just
     after (every ``flash_attention`` launch on the tensor-core route, some
     ``decode_attention`` calls split over the cache).
+13b. ``flash_attention`` and ``decode_attention`` at gemma-7b's shapes
+    (16 q heads on 16 kv heads of 256, bf16): a causal unwindowed prefill
+    of 256 tokens and its ragged edges, a decode over the full 512-slot
+    cache at lengths 0 to 512, split and unsplit, each against its plain
+    version; both timed at the serving shapes beside their bounds, the
+    plain versions and PyTorch's fused attention.
+13c. gemma-7b at its full config (8,537,680,896 parameters, f32 at rest,
+    bf16 compute, its residual stream f32 from the scaled embedding on):
+    a prefill of 8 x 256 tokens and 8 decode steps through the kernels
+    and through the plain versions, logits within 3 % of the largest; a
+    prefill's and a decode step's time split into casts, projections,
+    attention and FFN; the device idle share.
+13d. Serve gemma-7b: one calibration, then asl, fifo and greedy on that
+    cost model at a rate set from both calibrated costs, with both
+    attention counters set to 0 just before and read just after.  The
+    gemma-7b weights are freed.
 14. Hold ``flash_attention``'s log-sum-exp rows (the training forward's
     second output) and ``flash_attention_bwd`` against their plain
     versions on the card: f32 and bf16, head dims 32, 64, 128 and 256,
@@ -208,6 +232,11 @@ Phases, each of which fails the script (non-zero exit, no result line):
     step, the device idle share.
 20. Print each phase's wall time, the kernel table (JSON), the card and,
     last, the device line.
+
+Card times come from ``torch.profiler`` traces; one that holds fewer
+kernels and copies on the card than were launched is taken again, and
+a time with no complete trace is printed as "not measured" and written
+as null, never as 0.
 
 It exits non-zero when no CUDA device is present, and when the port's
 package is not next to it.
@@ -263,6 +292,8 @@ YI = "yi-6b"
 YI_PARAMS = 6_061_035_520
 RG = "recurrentgemma-2b"
 RG_PARAMS = 2_658_736_640
+GEMMA = "gemma-7b"
+GEMMA_PARAMS = 8_537_680_896
 SERVE_DURATION_S = 600.0
 MODEL_LOGITS_TOL = 0.03
 ATTN_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
@@ -918,6 +949,22 @@ KEYSHARD_CUT_DIGESTS = {
 }
 
 
+# examples/serving_bench_torch.py's rows_digest of each section of the
+# JAX package's benchmarks/serving_bench.py at SCALE 1.0 (the fleet
+# dispatcher, the serving engine and the staleness simulation, all
+# host-side).
+# tests/test_torch_serving_bench.py recomputes them with the JAX package.
+FLEET_DIGESTS = {
+    "db_serving":
+        "17065665f02d43ede40f6644ed9adbc95bcf2ed87b96779cf4c7ebff79d41b52",
+    "db_multiclass":
+        "4dfea0f559efd8d61c8069087a614067eee7044e1ccf7ee0af2ae0f711c52bb6",
+    "dispatch_fleet":
+        "abecf5e719dad5ea8b39a1bc742d8296fa6c17408008595857352d05af1e90f1",
+    "straggler_training":
+        "ea2cc7567932e17bc0f424750c8736ca6399ef97d1f55675a602caad35897ace",
+}
+
 def reference_cells(grid) -> "np.ndarray":
     """Indices of the cells REFERENCE_DIGESTS covers, in grid order."""
     import numpy as np
@@ -1045,34 +1092,49 @@ def parity_case(sl, simstep, name, cfg, axes, product=True) -> None:
         raise AssertionError(f"kernel != plain for {name}")
 
 
-def phase_parity(sl, simstep) -> None:
-    """Kernel == plain version on the card, every leaf, small grids: each
-    policy, each with the gated features on, and the merged set."""
-    import torch
+def parity_jobs(sl, simstep) -> list:
+    """Phase 2's comparisons, kernel == plain version on the card, every
+    leaf, small grids: each policy, each with the gated features on, the
+    merged set, and chunk 1 against chunk 128; -> [(name, thunk)]."""
+    from functools import partial
     from repro_torch.core import energy
     axes = {"n_cores": [4, 8], "slo_us": [40.0, 90.0], "seed": [0, 1, 2, 3]}
+    jobs = []
     for pol in POLICIES:
         for prog, kw in (("fig1", FIG1), ("bench1", BENCH1)):
-            parity_case(sl, simstep, f"{pol}/{prog}", sl.SimConfig(
-                policy=pol, sim_time_us=4000.0, **kw), axes)
+            jobs.append(partial(parity_case, sl, simstep, f"{pol}/{prog}",
+                                sl.SimConfig(policy=pol, sim_time_us=4000.0,
+                                             **kw), axes))
     # Long epochs, the wakeup cost and the energy model, all on.
     feats = dict(BENCH1, long_epoch_prob=0.3, long_epoch_scale=10.0,
                  wakeup_us=2.0, **energy.amp_power(BIG))
     for pol in POLICIES:
-        parity_case(sl, simstep, f"{pol}/bench1+features", sl.SimConfig(
-            policy=pol, sim_time_us=2000.0, **feats), axes)
+        jobs.append(partial(parity_case, sl, simstep,
+                            f"{pol}/bench1+features", sl.SimConfig(
+                                policy=pol, sim_time_us=2000.0, **feats),
+                            axes))
     merged = {"policy": list(POLICIES) * 2,
               "slo_us": [40.0] * 7 + [90.0] * 7,
               "w_big": [1.0, 8.0, 1.0, 1.0, 1.0, 1.0, 1.0] * 2,
               "shfl_bound": [4] * 7 + [1] * 7,
               "race_bound": [8] * 7 + [2] * 7}
-    parity_case(sl, simstep, "merged 7/bench1+features", sl.SimConfig(
-        sim_time_us=2000.0, **feats), merged, product=False)
+    jobs.append(partial(parity_case, sl, simstep, "merged 7/bench1+features",
+                        sl.SimConfig(sim_time_us=2000.0, **feats), merged,
+                        product=False))
+    jobs.append(partial(chunk_parity, sl, axes))
+    return [(f"2 {j.args[2]}" if j.func is parity_case else "2 chunk", j)
+            for j in jobs]
+
+
+def chunk_parity(sl, axes) -> None:
+    """libasl through the kernel at chunk 1 and at chunk 128: every leaf
+    equal."""
+    import dataclasses
+    import torch
     cfg = sl.SimConfig(policy="libasl", sim_time_us=4000.0, **FIG1)
     tb, pm, st, _ = sl.init_sweep(cfg, axes, device="cuda")
     one = clone(st)
     sl.simulate(cfg, tb, pm, st)
-    import dataclasses
     sl.simulate(dataclasses.replace(cfg, chunk=1), tb, pm, one)
     torch.cuda.synchronize()
     bad, _ = leaf_diff(st, one)
@@ -1080,6 +1142,88 @@ def phase_parity(sl, simstep) -> None:
           f"{bad or 'none'}", flush=True)
     if bad:
         raise AssertionError("chunk=1 != chunk=128")
+
+
+def plain_jobs(sl, simstep) -> list:
+    """Every kernel-against-plain-step comparison on the card, as [(name,
+    thunk)], the longest first: phase 3c's cuts (each load figure's, the
+    features' and the diurnal one), phase 3d's (the keyed cuts, each
+    ``ks_*`` policy with keys off), then phase 2's.  The plain step is
+    thousands of small launches a step, bound by the host, so
+    :func:`run_plain_jobs` runs these in several processes."""
+    from functools import partial
+    jobs = [(f"3c {c[0]}", partial(cut_run, sl, simstep, c))
+            for c in load_cuts(sl, load_grids(sl))]
+    jobs.append(("3c diurnal cut", partial(cut_run, sl, simstep,
+                                           diurnal_cut(sl), level3=True)))
+    jobs += [(f"3d {c[0]}", partial(cut_run, sl, simstep, c))
+             for c in keyshard_cuts(sl)]
+    axes = {"n_cores": [4, 6, 8]}
+    for pol, knob in (("ks_erew", "erew_bound"), ("ks_crew", "crew_bound"),
+                      ("ks_jbsq", "jbsq_k")):
+        for prog, kw in (("fig1", FIG1), ("bench1", BENCH1)):
+            jobs.append((f"3d {pol}/{prog} keys off", partial(
+                parity_case, sl, simstep, f"{pol}/{prog} keys off",
+                sl.SimConfig(policy=pol, sim_time_us=KEYS_OFF_US, **kw),
+                {**axes, knob: [1, 4]})))
+    return jobs + parity_jobs(sl, simstep)
+
+
+# The processes run_plain_jobs spreads the comparisons over (each drives
+# its own launches on the one card, and takes a host core or so; the run
+# prints the cores it was given).
+PLAIN_WORKERS = 4
+_JOBS = []
+
+
+def _plain_job(i: int) -> tuple:
+    """Run plain job ``i`` in a worker process, its printed lines
+    captured; -> (i, ok, the lines, seconds)."""
+    import contextlib
+    import io
+    if not _JOBS:
+        import torch
+        torch.set_num_threads(1)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        from repro_torch.core import simlock as sl
+        from repro_torch.kernels import simstep
+        _JOBS.extend(plain_jobs(sl, simstep))
+    out = io.StringIO()
+    t0 = time.time()
+    ok = True
+    with contextlib.redirect_stdout(out):
+        try:
+            _JOBS[i][1]()
+        except Exception:
+            traceback.print_exc(file=out)
+            ok = False
+    return i, ok, out.getvalue(), time.time() - t0
+
+
+def run_plain_jobs(sl, simstep) -> None:
+    """:func:`plain_jobs` in ``PLAIN_WORKERS`` spawned processes, each job
+    in the next free one, the longest first; each job's lines printed as
+    it finishes.  Fails if any job fails, and at once if a worker process
+    dies (a fault in a kernel, say) instead of waiting on it."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor, as_completed
+    names = [n for n, _ in plain_jobs(sl, simstep)]
+    t0 = time.time()
+    bad = []
+    with ProcessPoolExecutor(PLAIN_WORKERS,
+                             mp_context=mp.get_context("spawn")) as pool:
+        for done in as_completed([pool.submit(_plain_job, i)
+                                  for i in range(len(names))]):
+            i, ok, text, secs = done.result()
+            print(text, end="")
+            print(f"  [{names[i]}: {secs:.1f} s in its process]", flush=True)
+            bad += [] if ok else [names[i]]
+    print(f"kernel against plain step (phases 2, 3c, 3d): {len(names)} "
+          f"comparisons in {PLAIN_WORKERS} processes on "
+          f"{len(os.sched_getaffinity(0))} host cores, "
+          f"{time.time() - t0:.1f} s", flush=True)
+    if bad:
+        raise AssertionError(f"kernel != plain step: {bad}")
 
 
 def cuda_ms(fn) -> float:
@@ -1235,24 +1379,26 @@ def phase_main(sl, simstep) -> dict:
     # its fused_chunk launches, and simulate's time outside them.
     init_ms = sim_ms = card_ms = 0.0
     for pol, (cfg, *_rest, ms, init, sim, n) in runs.items():
-        card = sum(v for k, v in kernel_split(lambda: sl.sweep(
-            cfg, MAIN_GRID[pol], device="cuda"), 1).items()
-            if "fused_chunk" in k)
+        card = fused_chunk_card_ms(lambda: sl.sweep(
+            cfg, MAIN_GRID[pol], device="cuda"), n)
         init_ms += init
         sim_ms += sim
-        card_ms += card
+        card_ms = None if card is None or card_ms is None else card_ms + card
         print(f"main {pol}: of its {ms:.1f} ms wall, init_sweep {init:.1f} "
               f"ms, simulate {sim:.1f} ms: fused_chunk on the card "
-              f"{card:.1f} ms ({card / n:.4f} ms a launch), outside the "
-              f"kernel {sim - card:.1f} ms", flush=True)
+              f"{card_text(card, '.1f')} ms ("
+              f"{card_text(card and card / n)} ms a launch), outside the "
+              f"kernel {card_text(card and sim - card, '.1f')} ms",
+              flush=True)
     print(f"main path: {sum(len(r[1].events) for r in runs.values())} "
           f"cells, {total_ev} events in {total_ms / 1e3:.3f} s "
           f"({total_ev / (total_ms / 1e3):.0f} events/s), {launches} "
           f"fused_chunk launches ({total_over} past the last live chunk; "
           f"liveness checked once per {sl.LIVENESS_GROUP}); init_sweep "
           f"{init_ms:.1f} ms, simulate {sim_ms:.1f} ms, of it fused_chunk "
-          f"{card_ms:.1f} ms on the card (profiler) and outside the kernel "
-          f"{sim_ms - card_ms:.1f} ms; max_memory_allocated "
+          f"{card_text(card_ms, '.1f')} ms on the card (profiler) and "
+          f"outside the kernel {card_text(card_ms and sim_ms - card_ms, '.1f')}"
+          f" ms; max_memory_allocated "
           f"{peak / 2**30:.3f} GiB", flush=True)
     if launches <= 0:
         raise AssertionError("the main path launched no fused_chunk kernel")
@@ -1260,7 +1406,7 @@ def phase_main(sl, simstep) -> dict:
             "events_per_s": total_ev / (total_ms / 1e3),
             "launches_past_end": total_over, "init_sweep_ms": init_ms,
             "simulate_ms": sim_ms, "card_ms": card_ms,
-            "outside_ms": sim_ms - card_ms}
+            "outside_ms": None if card_ms is None else sim_ms - card_ms}
 
 
 def figure_run(sl, simstep, name, cfg, axes, slo_us, product) -> tuple:
@@ -1284,16 +1430,16 @@ def figure_run(sl, simstep, name, cfg, axes, slo_us, product) -> tuple:
     ev = st.events.cpu().numpy()
     got = full_digest(sl.to_reference(st))
     # The same sweep again under the profiler, not counted.
-    card = sum(v for k, v in kernel_split(lambda: sl.sweep(
-        cfg, axes, slo_us=slo_us, product=product, device="cuda"),
-        1).items() if "fused_chunk" in k)
+    card = fused_chunk_card_ms(lambda: sl.sweep(
+        cfg, axes, slo_us=slo_us, product=product, device="cuda"), n)
     simstep.fused_chunk.launches = n0 + n
     bound, by = launch_bound(tb, pm, cfg, simstep, before, st, n)
     wall = t2 - t0
     row = {"cells": int(ev.size), "events": int(ev.sum()), "wall_s": wall,
            "init_sweep_ms": (t1 - t0) * 1e3,
            "simulate_ms": (t2 - t1) * 1e3, "events_per_s": ev.sum() / wall,
-           "launches": n, "card_ms": card, "ms": card / n,
+           "launches": n, "card_ms": card,
+           "ms": None if card is None else card / n,
            "bound_ms": bound, "bound_by": by,
            "instantiation": simstep.instantiation_name(cfg)}
     same = got == FIGURE_DIGESTS.get(name)
@@ -1301,8 +1447,9 @@ def figure_run(sl, simstep, name, cfg, axes, slo_us, product) -> tuple:
           f"{wall:.3f} s ({row['init_sweep_ms']:.1f} ms init_sweep, "
           f"{row['simulate_ms']:.1f} ms simulate), "
           f"{row['events_per_s']:.0f} events/s, {n} launches "
-          f"({row['instantiation']}), fused_chunk on the card {card:.2f} ms "
-          f"({row['ms']:.4f} ms a launch, bound {bound:.6f} by {by}); "
+          f"({row['instantiation']}), fused_chunk on the card "
+          f"{card_text(card, '.2f')} ms ({card_text(row['ms'])} ms a launch, "
+          f"bound {bound:.6f} by {by}); "
           f"{'bit-identical to' if same else 'DIFFERS from'} the JAX "
           f"reference (sha256 {got[:16]})", flush=True)
     if not same:
@@ -1416,17 +1563,12 @@ def load_columns(name, summ) -> list:
 
 
 def phase_load_figures(sl, simstep) -> dict:
-    """Phase 3c: the load, excess-tail and chaos figures.  First each
-    grid's cut, kernel against plain step on the card; then the full
+    """Phase 3c: the load, excess-tail and chaos figures (their cuts,
+    kernel against plain step, run in :func:`run_plain_jobs`): the full
     grids through ``sweep``'s two parts, each held to the JAX package's
     final state, with the ``fused_chunk`` counter set to 0 just before
     and read just after."""
     grids = load_grids(sl)
-    t0 = time.time()
-    for cut in load_cuts(sl, grids):
-        cut_run(sl, simstep, cut)
-    cut_run(sl, simstep, diurnal_cut(sl), level3=True)
-    print(f"load cuts: {time.time() - t0:.1f} s", flush=True)
     simstep.fused_chunk.launches = 0
     rows = {}
     for name, cfg, axes, slo, product in grids:
@@ -1448,25 +1590,14 @@ def phase_load_figures(sl, simstep) -> dict:
 
 
 def phase_keyshard(sl, simstep) -> dict:
-    """Phase 3d: keyed traffic.  Kernel against plain step on the card,
-    every leaf: the keyed cuts (each held to the JAX package's final
-    state, ``KEYSHARD_CUT_DIGESTS``) and each ks_* policy with keys off on
-    the fig1 and Bench-1 programs.  Then ``paper_figs.keyshard`` at full length through
+    """Phase 3d: keyed traffic (its comparisons of kernel and plain step,
+    the keyed cuts held to ``KEYSHARD_CUT_DIGESTS`` and each ks_* policy
+    with keys off, run in :func:`run_plain_jobs`):
+    ``paper_figs.keyshard`` at full length through
     ``sweep``'s two parts, each grid held to the JAX package's final state,
     with the ``fused_chunk`` counter set to 0 just before and read just
     after; each cell's throughput and epoch P99 by label."""
     t0 = time.time()
-    for cut in keyshard_cuts(sl):
-        cut_run(sl, simstep, cut)
-    axes = {"n_cores": [4, 6, 8]}
-    for pol, knob in (("ks_erew", "erew_bound"), ("ks_crew", "crew_bound"),
-                      ("ks_jbsq", "jbsq_k")):
-        for prog, kw in (("fig1", FIG1), ("bench1", BENCH1)):
-            parity_case(sl, simstep, f"{pol}/{prog} keys off", sl.SimConfig(
-                policy=pol, sim_time_us=KEYS_OFF_US, **kw),
-                {**axes, knob: [1, 4]})
-    cuts_s = time.time() - t0
-    print(f"keyshard cuts: {cuts_s:.1f} s", flush=True)
     simstep.fused_chunk.launches = 0
     rows = {}
     for name, cfg, axes, slo, product in keyshard_grids(sl):
@@ -1480,12 +1611,14 @@ def phase_keyshard(sl, simstep) -> dict:
     launches = simstep.fused_chunk.launches
     total_ev = sum(r["events"] for r in rows.values())
     total_s = sum(r["wall_s"] for r in rows.values())
-    card = sum(r["card_ms"] for r in rows.values())
+    cards = [r["card_ms"] for r in rows.values()]
+    card = None if None in cards else sum(cards)
     print(f"keyshard figure: {len(rows)} grids, "
           f"{sum(r['cells'] for r in rows.values())} cells, {total_ev} "
           f"events in {total_s:.3f} s ({total_ev / total_s:.0f} events/s), "
-          f"{launches} fused_chunk launches, {card:.2f} ms on the card "
-          f"({card / launches:.4f} ms a launch); phase 3d "
+          f"{launches} fused_chunk launches, {card_text(card, '.2f')} ms on "
+          f"the card ({card_text(card and card / launches)} ms a launch); "
+          f"phase 3d "
           f"{time.time() - t0:.1f} s", flush=True)
     if launches <= 0 or launches != sum(r["launches"] for r in
                                         rows.values()):
@@ -1507,19 +1640,20 @@ def carried_run(sl, simstep, name, cfg, windows) -> tuple:
     wall = time.perf_counter() - t0
     n = simstep.fused_chunk.launches - n0
     got = full_digest(sl.to_reference(st))
-    card = sum(v for k, v in kernel_split(lambda: sl.run(
-        cfg, BENCH2_SLO, 0, w_in, device="cuda"), 1).items()
-        if "fused_chunk" in k)
+    card = fused_chunk_card_ms(lambda: sl.run(
+        cfg, BENCH2_SLO, 0, w_in, device="cuda"), n)
     simstep.fused_chunk.launches = n0 + n
     ev = int(st.events)
     row = {"cells": 1, "events": ev, "wall_s": wall,
            "events_per_s": ev / wall, "launches": n, "card_ms": card,
-           "ms": card / n, "instantiation": cfg.policy}
+           "ms": None if card is None else card / n,
+           "instantiation": cfg.policy}
     same = got == FIGURE_DIGESTS[name]
     mean_w = float(st.window[4:].mean()) / 100.0
     print(f"figure {name}: 1 cell, {ev} events, {wall:.3f} s, "
           f"{row['events_per_s']:.0f} events/s, {n} launches, fused_chunk "
-          f"on the card {card:.2f} ms ({row['ms']:.4f} ms a launch); little "
+          f"on the card {card_text(card, '.2f')} ms "
+          f"({card_text(row['ms'])} ms a launch); little "
           f"cores' mean window {mean_w:.2f} us; "
           f"{'bit-identical to' if same else 'DIFFERS from'} the JAX "
           f"reference (sha256 {got[:16]})", flush=True)
@@ -1728,6 +1862,39 @@ def phase_example() -> None:
         raise AssertionError("examples/lock_microbench_torch.py failed")
 
 
+def phase_fleet() -> dict:
+    """Phase 3h: ``examples/serving_bench_torch.py``'s four sections (the
+    fleet dispatcher over every dispatch policy and load, the serving
+    engine's two sections and the staleness simulation; host-side numpy)
+    at ``SCALE = 1.0``, each section's rows held to the JAX package's
+    (``FLEET_DIGESTS``).  -> {section: seconds}."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "serving_bench_torch", ROOT / "examples" / "serving_bench_torch.py")
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    secs = {}
+    for name, section in bench.ALL.items():
+        t0 = time.perf_counter()
+        rows = section()
+        secs[name] = round(time.perf_counter() - t0, 3)
+        got = bench.rows_digest(rows)
+        ok = got == FLEET_DIGESTS[name]
+        print(f"fleet {name}: {len(rows)} rows in {secs[name]} s, digest "
+              f"{got[:16]}... {'== the JAX package' if ok else 'DIFFERS'}",
+              flush=True)
+        for row in rows:
+            if name == "dispatch_fleet":
+                print(f"  {row['name']}: throughput "
+                      f"{row['throughput_rps']:.3f} rps, p99 "
+                      f"{row['p99']:.4f} s, fast {row['served_fast']} / "
+                      f"slow {row['served_slow']}")
+        if not ok:
+            raise AssertionError(f"fleet section {name} differs from the "
+                                 f"JAX package's rows")
+    return secs
+
+
 def mlstm_inputs(gen, b, h, s, dh, dtype, carry, model_layout=False):
     """Random q, k (scaled by 1/sqrt(dh)), v in ``dtype``, f32 gates (the
     forget gate biased open, as the model initializes it) and, if asked,
@@ -1845,8 +2012,9 @@ def phase_mlstm(ms, build) -> dict:
     bound, by = mlstm_bound(b, h, s, dh, 4, False)
     print(f"mlstm_scan serving prefill B={b} H={h} S={s} dh={dh} f32: "
           f"kernel {kernel_ms:.4f} ms/launch (of "
-          f"{[round(t, 4) for t in times]}; on the card {card_ms:.4f}), "
-          f"plain {plain_ms:.2f} ms, bound {bound:.5f} ms ({by}), max abs "
+          f"{[round(t, 4) for t in times]}; on the card "
+          f"{card_text(card_ms)}), plain {plain_ms:.2f} ms, bound "
+          f"{bound:.5f} ms ({by}), max abs "
           f"err h {errs[0]:.3g}", flush=True)
     if not ok:
         raise AssertionError("mlstm_scan != plain at the serving shapes")
@@ -1858,7 +2026,8 @@ def phase_mlstm(ms, build) -> dict:
                             ms.mlstm_scan_ref(*args1, c1), "float32")
     dec_bound, dec_by = mlstm_bound(b, h, 1, dh, 4, True)
     print(f"mlstm_scan decode B={b} H={h} S=1 dh={dh} with carry: kernel "
-          f"{dec_ms:.4f} ms/launch (on the card {dec_card_ms:.4f}), bound "
+          f"{dec_ms:.4f} ms/launch (on the card {card_text(dec_card_ms)}), "
+          f"bound "
           f"{dec_bound:.5f} ms ({dec_by}), max abs err h/C/n/m "
           f"{' '.join(f'{e:.3g}' for e in errs1)}", flush=True)
     if not ok1:
@@ -2094,12 +2263,14 @@ def flash_timing(fa, gen, name, b, h, kh, s, dh, window) -> dict:
     bnd, by = bound(n_bytes, flops)
     print(f"flash_attention {name} B={b} H={h} K={kh} S=T={s} dh={dh} "
           f"window={window} bf16 causal: kernel {kernel_ms:.4f} ms/launch (of "
-          f"{[round(x, 4) for x in times]}; on the card {dev_ms:.4f}), "
+          f"{[round(x, 4) for x in times]}; on the card "
+          f"{card_text(dev_ms)}), "
           f"plain {plain_ms:.3f} ms, "
           f"library {lib_ms:.4f} ms, bound {bnd:.5f} ms ({by}; "
           f"{n_bytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), max abs err "
           f"{err:.3g}; PERF.md row before the tensor-core route "
-          f"{EARLIER_MS['flash_attention ' + name]} ms", flush=True)
+          f"{EARLIER_MS.get('flash_attention ' + name, 'none')} ms",
+          flush=True)
     if err > attn_tol(torch.bfloat16):
         raise AssertionError(f"flash_attention != plain at B={b} H={h} "
                              f"K={kh} S={s} dh={dh}")
@@ -2231,13 +2402,15 @@ def decode_timing(da, gen, b, h, kh, t, dh, n, starts) -> dict:
             q, kc, vc, lens, st, splits=force), reps=100)
         _, card, _ = device_busy(lambda: da.decode_attention(
             q, kc, vc, lens, st, splits=force), 100)
-        turns.setdefault(name, []).append((round(ms, 4), round(card, 4)))
+        turns.setdefault(name, []).append(
+            (round(ms, 4), None if card is None else round(card, 4)))
     print(f"decode_attention B={b} H={h} K={kh} T={t} length {n} starts "
           f"{starts} dh={dh} bf16: kernel {kernel_ms:.4f} ms/launch (of "
-          f"{[round(x, 4) for x in times]}; on the card {dev_ms:.4f}: "
-          f"{ {k: round(v, 4) for k, v in by_kernel.items()} }), plain "
-          f"{plain_ms:.3f} ms, library {lib_ms:.4f} ms (on the card "
-          f"{lib_dev_ms:.4f}), bound {bnd:.6f} ms "
+          f"{[round(x, 4) for x in times]}; on the card "
+          f"{card_text(dev_ms)}: "
+          f"{by_kernel and {k: round(v, 4) for k, v in by_kernel.items()}}"
+          f"), plain {plain_ms:.3f} ms, library {lib_ms:.4f} ms (on the card "
+          f"{card_text(lib_dev_ms)}), bound {bnd:.6f} ms "
           f"({by}; {n_bytes / 1e6:.2f} MB), {splits} splits x {kh * b} = "
           f"{blocks} blocks, max abs err {err:.3g}, two calls "
           f"{'bit-equal' if torch.equal(got, again) else 'DIFFER'}; in "
@@ -2253,7 +2426,8 @@ def decode_timing(da, gen, b, h, kh, t, dh, n, starts) -> dict:
             "library_card_ms": lib_dev_ms, "card_ms": dev_ms,
             "splits": splits, "blocks": blocks,
             "unsplit_ms": min(t[0] for t in turns["unsplit"]),
-            "unsplit_card_ms": min(t[1] for t in turns["unsplit"])}
+            "unsplit_card_ms": min((t[1] for t in turns["unsplit"]
+                                    if t[1] is not None), default=None)}
 
 
 # Lengths of the decode sweep: the first port's, and the edges of the
@@ -2481,60 +2655,113 @@ def card_events(events, device_type) -> list:
             and not e.is_user_annotation]
 
 
-def card_us(events, device_type) -> float:
+def card_us(events, device_type):
     """Microseconds of kernels and copies on the card in a profile's
-    events (:func:`card_events`)."""
+    events (:func:`card_events`); None where :func:`profiled` gave no
+    complete trace."""
+    if events is None:
+        return None
     return sum(e.time_range.elapsed_us()
                for e in card_events(events, device_type))
 
 
-def profiled(fn, n):
+# Traces profiled takes of one thing before it gives up on a card time,
+# and the idle host seconds it leaves on each side of the calls it traces.
+PROFILE_TRIES = 3
+PROFILE_PAD_S = 0.05
+
+
+def profiled(fn, n, least=None):
     """torch.profiler's events of ``n`` calls of ``fn`` and a
     synchronisation, after as many in a warm-up cycle that the profiler
     traces and throws away: without it, the kernels of the first calls
-    after the profiler started could be missing from the trace."""
+    after the profiler started could be missing from the trace.  Traces
+    of a few milliseconds of work have come back without some or all of
+    their kernels, as if the window cut them off at its edges, so each
+    cycle leaves ``PROFILE_PAD_S`` of idle time before and after its
+    calls.  Each call launches a kernel or more, so a trace with fewer
+    kernels and
+    copies on the card than calls (or than ``least``, where the caller
+    knows more) has lost events (the profiler has returned such traces,
+    with some or all of the card's events missing); it is taken again, up
+    to ``PROFILE_TRIES`` times.  -> the events of the first
+    complete trace, or None: a card time read from an incomplete one
+    would be wrong."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
-    box = {}
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
-                 on_trace_ready=lambda p: box.update(events=p.events())) \
-            as prof:
-        for _ in range(2):
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
-    return box["events"]
+    for attempt in range(1, PROFILE_TRIES + 1):
+        box = {}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     on_trace_ready=lambda p: box.update(events=p.events())) \
+                as prof:
+            for _ in range(2):
+                time.sleep(PROFILE_PAD_S)
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+                time.sleep(PROFILE_PAD_S)
+                prof.step()
+        found = len(card_events(box["events"], DeviceType))
+        if found >= (n if least is None else least):
+            return box["events"]
+        print(f"torch.profiler: trace {attempt} of {n} calls holds {found} "
+              f"kernels and copies on the card, fewer than launched; "
+              f"{'again' if attempt < PROFILE_TRIES else 'not measured'}",
+              flush=True)
+    return None
+
+
+def card_text(ms, spec=".4f") -> str:
+    """A card time as text; "not measured" for None."""
+    return "not measured" if ms is None else format(ms, spec)
 
 
 def device_busy(fn, n) -> tuple:
     """(wall ms, device ms, idle share) of one call of ``fn``: the card's
     kernel and copy time from ``torch.profiler`` over ``n`` calls (one
     stream, so the events do not overlap), against the wall time of ``n``
-    more calls with the profiler off."""
+    more calls with the profiler off.  The device ms and the idle share
+    are None where no complete trace was taken."""
     import torch
     from torch.autograd import DeviceType
-    busy = card_us(profiled(fn, n), DeviceType) / 1e3 / n
+    busy = card_us(profiled(fn, n), DeviceType)
     t0 = time.perf_counter()
     for _ in range(n):
         fn()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / n
+    if busy is None:
+        return wall, None, None
+    busy = busy / 1e3 / n
     return wall, busy, 1 - busy / wall
 
 
-def kernel_split(fn, n) -> dict:
+def kernel_split(fn, n, least=None):
     """ms a call of each kernel that ``fn`` launches, by name (its
-    template argument kept), from ``torch.profiler``."""
+    template argument kept), from ``torch.profiler``; None where no
+    complete trace was taken (:func:`profiled`)."""
     import re
     from torch.autograd import DeviceType
+    events = profiled(fn, n, least)
+    if events is None:
+        return None
     split = {}
-    for e in card_events(profiled(fn, n), DeviceType):
+    for e in card_events(events, DeviceType):
         m = re.search(r"\w+_kernel(<\d+>)?", e.name)
         key = m.group(0) if m else e.name[:40]
         split[key] = split.get(key, 0.0) + e.time_range.elapsed_us() / 1e3 / n
     return split
+
+
+def fused_chunk_card_ms(fn, launches):
+    """ms on the card of the ``launches`` fused_chunk launches of one
+    call of ``fn``; None where no complete trace was taken."""
+    split = kernel_split(fn, 1, launches)
+    return None if split is None else sum(
+        v for k, v in split.items() if "fused_chunk" in k)
 
 
 def phase_full_model(arch, n_want, counters, plain, time_layer):
@@ -2623,9 +2850,10 @@ def phase_full_model(arch, n_want, counters, plain, time_layer):
             ("decode step", lambda: lm.decode_step(
                 params, cfg, toks[:, s:s + 1], lengths, cache), 3)):
         wall, busy, idle = device_busy(fn, k)
-        print(f"{arch} one {name}: {wall:.2f} ms wall, {busy:.2f} ms of "
-              f"kernels and copies on the card (torch.profiler, mean of "
-              f"{k}), device idle share {idle:.1%}", flush=True)
+        print(f"{arch} one {name}: {wall:.2f} ms wall, "
+              f"{card_text(busy, '.2f')} ms of kernels and copies on the "
+              f"card (torch.profiler, mean of {k}), device idle share "
+              f"{card_text(idle, '.1%')}", flush=True)
     print(f"{arch} model phase: max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     return params
@@ -2797,7 +3025,8 @@ def rglru_timing(rs, gen, name, b, s, r, h0) -> dict:
     bnd, by = rglru_bound(b, s, r, 4, h0)
     print(f"rglru_scan {name} B={b} S={s} R={r} f32: kernel "
           f"{kernel_ms:.4f} ms/launch (of {[round(t, 4) for t in times]}; "
-          f"on the card {card_ms:.4f}), plain {plain_ms:.2f} ms, bound "
+          f"on the card {card_text(card_ms)}), plain {plain_ms:.2f} ms, "
+          f"bound "
           f"{bnd:.5f} ms ({by}), max abs err {err:.3g}", flush=True)
     if not ok:
         raise AssertionError(f"rglru_scan != plain at the {name} shape")
@@ -2888,6 +3117,64 @@ def phase_rg_model(rs, fa, da):
                         "decode_attention": da.decode_attention},
         dict(rglru_scan=rs.rglru_scan_ref,
              flash_attention=fa.flash_attention_ref,
+             decode_attention=da.decode_attention_ref), time_layer)
+
+
+# ---------------------------------------------------------------------------
+# gemma-7b: the attention kernels at its shapes, the model and its server
+# ---------------------------------------------------------------------------
+
+def phase_gemma_kernels(fa, da) -> dict:
+    """``flash_attention`` and ``decode_attention`` at gemma-7b's serving
+    shapes (16 q heads on 16 kv heads of 256: group 1, bf16): a causal
+    unwindowed prefill of SERVE_CHUNK tokens (and its ragged edges), and a
+    decode over the full 2 x SERVE_CHUNK-slot cache at lengths from 1 to
+    every slot, split and unsplit, each against its plain version; then
+    both timed at the serving path's shapes beside their bounds, the plain
+    versions and PyTorch's fused attention.  -> {kernel: timing}."""
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    b, h, dh, s, t = SERVE_BATCH, 16, 256, SERVE_CHUNK, 2 * SERVE_CHUNK
+    bad = []
+    for sq, tk in ((s, s), (1, s), (s - 1, s), (s + 1, s + 1), (64, t)):
+        err, ok = flash_case(fa, gen, b, h, h, sq, tk, dh, torch.bfloat16,
+                             True, 0)
+        print(f"flash_attention {GEMMA} B={b} H=K={h} dh={dh} S={sq} "
+              f"T={tk} causal bf16: max abs err {err:.3g}"
+              f"{'' if ok else ' OVER TOLERANCE'}", flush=True)
+        bad += [] if ok else [("flash", sq, tk)]
+    for lengths in ([1] * b, [s + 1] * b, [t - 1] * b, [t] * b,
+                    [0, 1, 17, 255, 256, 257, 511, 512]):
+        err, ok = decode_case(da, gen, b, h, h, t, dh, torch.bfloat16,
+                              lengths)
+        print(f"decode_attention {GEMMA} B={b} H=K={h} T={t} dh={dh} "
+              f"lengths {sorted(set(lengths))} bf16, split and unsplit: "
+              f"max abs err {err:.3g}{'' if ok else ' OVER TOLERANCE'}",
+              flush=True)
+        bad += [] if ok else [("decode", lengths)]
+    if bad:
+        raise AssertionError(f"{GEMMA} attention shapes != plain: {bad}")
+    return {"flash_attention": flash_timing(
+                fa, gen, f"{GEMMA} serve", b, h, h, s, dh, 0),
+            "decode_attention": decode_timing(
+                da, gen, b, h, h, t, dh, s + 1, None)}
+
+
+def phase_gemma_model(fa, da):
+    """gemma-7b at its full config on the card (:func:`phase_full_model`:
+    34.2 GB of f32 weights), each attention block cut into casts,
+    projections, attention and FFN.  -> the parameters, for the serve
+    phase."""
+    from repro_torch.models import layers
+
+    def time_layer(kind, lp, x, cfg, cache, spent, lengths):
+        return timed_attn_layer(layers, lp, x, cfg, cache, spent,
+                                lengths=lengths)[0]
+    return phase_full_model(
+        GEMMA, GEMMA_PARAMS, {"flash_attention": fa.flash_attention,
+                              "decode_attention": da.decode_attention},
+        dict(flash_attention=fa.flash_attention_ref,
              decode_attention=da.decode_attention_ref), time_layer)
 
 
@@ -3133,8 +3420,9 @@ def flash_bwd_timing(fa, fb, gen, name, b, h, kh, s, dh, window) -> dict:
                                               window)
     print(f"flash_attention_bwd {name} B={b} H={h} K={kh} S=T={s} dh={dh} "
           f"window={window} bf16 causal: kernel {kernel_ms:.3f} ms/call (of "
-          f"{[round(x, 3) for x in times]}; on the card {dev_ms:.3f}; "
-          f"{len(split)} kernels a call: {', '.join(split)}), plain "
+          f"{[round(x, 3) for x in times]}; on the card "
+          f"{card_text(dev_ms, '.3f')}; kernels a call: "
+          f"{card_text(split and ', '.join(split), 's')}), plain "
           f"{plain_ms:.2f} ms, library "
           f"{lib_ms:.3f} ms (SDPA backward), bound {bnd:.4f} ms ({by}; "
           f"{n_bytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP), max abs err "
@@ -3165,7 +3453,8 @@ def flash_bwd_timing(fa, fb, gen, name, b, h, kh, s, dh, window) -> dict:
     print(f"flash_attention with LSE {name} training shape: kernel "
           f"{fwd['ms']:.3f} ms/launch"
           + (f" (PERF.md row before the tensor-core route {earlier} ms)"
-             if earlier else "") + f", on the card {fwd['card_ms']:.3f} ms,"
+             if earlier else "")
+          + f", on the card {card_text(fwd['card_ms'], '.3f')} ms,"
           f" plain {fwd['plain_ms']:.2f} ms, "
           f"library {fwd['library_ms']:.3f} ms (SDPA forward), bound "
           f"{fwd['bound_ms']:.4f} ms ({fwd['bound_by']}); output within "
@@ -3294,7 +3583,8 @@ def phase_rglru_bwd(rs) -> dict:
     print(f"rglru_scan backward sweep: {n_cases}/{n_cases} bit-equal; at "
           f"B=1 S={TRAIN_SEQ} R=2560 f32: {ms:.4f} ms a call (of "
           f"{[round(t, 4) for t in times]}; one launch; on the card "
-          f"{dev_ms:.4f}), plain {plain_ms:.2f} ms, bound {bnd:.4f} ms "
+          f"{card_text(dev_ms)}), plain {plain_ms:.2f} ms, bound "
+          f"{bnd:.4f} ms "
           f"(bytes: a, h, dh read and da, dx written once)", flush=True)
     return {"ms": ms, "card_ms": dev_ms, "plain_ms": plain_ms,
             "max_abs_err": err, "bound_ms": bnd, "bound_by": "bytes"}
@@ -3589,11 +3879,6 @@ def phase_train_profile(out) -> None:
                  for k, v in data.batch(box["step"]).items()}
         box["step"] = step_fn(params, opt_state, box["step"], batch)[2]
         torch.cuda.synchronize()
-    split, busy, count, attn_kernels, lost = step_split(
-        profiled(one_step, 1), DeviceType)
-    t0 = time.perf_counter()
-    one_step()
-    wall = (time.perf_counter() - t0) * 1e3
     n_local = cfg.blocks().count("local_attn")
     n_rglru = cfg.blocks().count("rglru")
     mb = TRAIN_MICROBATCHES
@@ -3601,6 +3886,16 @@ def phase_train_profile(out) -> None:
         cfg.blocks()), "repro_torch.flash_attention_bwd": mb * n_local,
         "repro_torch.rglru_scan_bwd": mb * n_rglru,
         "repro_torch.optimizer": 1}
+    # Each of these ranges launches a kernel or more.
+    events = profiled(one_step, 1, sum(want.values()))
+    t0 = time.perf_counter()
+    one_step()
+    wall = (time.perf_counter() - t0) * 1e3
+    if events is None:
+        print(f"train {RG} one step: {wall:.1f} ms wall; its card time and "
+              f"ranges not measured (no complete trace)", flush=True)
+        return
+    split, busy, count, attn_kernels, lost = step_split(events, DeviceType)
     print(f"train {RG} one step's card time by the port's profiler ranges "
           f"({busy:.1f} ms in all): " + ", ".join(
               f"{k} {v:.1f} ms ({v / busy:.1%})" for k, v in split.items())
@@ -3677,8 +3972,8 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         laps.lap("1 build")
-        phase_parity(sl, simstep)
-        laps.lap("2 parity")
+        run_plain_jobs(sl, simstep)
+        laps.lap("2, 3c, 3d kernel vs plain")
         shape = phase_main_shape(sl, simstep)
         main_run = phase_main(sl, simstep)
         laps.lap("2-3 main path")
@@ -3694,6 +3989,8 @@ def main() -> int:
         laps.lap("3f")
         phase_example()
         laps.lap("3g")
+        phase_fleet()
+        laps.lap("3h fleet")
         mlstm = phase_mlstm(ms, build)
         serve_run = phase_serve(ms)
         phase_model(ms)
@@ -3723,6 +4020,15 @@ def main() -> int:
         del params
         torch.cuda.empty_cache()
         laps.lap("11-13 recurrentgemma-2b")
+        gemma = phase_gemma_kernels(fa, da)
+        params = phase_gemma_model(fa, da)
+        gemma_launches, _, _ = phase_serve_once(
+            GEMMA, {"flash_attention": fa.flash_attention,
+                    "decode_attention": da.decode_attention}, params,
+            with_decode=True)
+        del params
+        torch.cuda.empty_cache()
+        laps.lap("13b-13d gemma-7b")
         t0 = time.time()
         flash_bwd = phase_flash_bwd(fa, fb)
         rglru_bwd = phase_rglru_bwd(rs)
@@ -3807,6 +4113,7 @@ def main() -> int:
         launches=yi_launches[name],
         launches_by_path={f"{YI} serve": yi_launches[name],
                           f"{RG} serve": rg_launches[name],
+                          f"{GEMMA} serve": gemma_launches[name],
                           f"{RG} train (forward and recompute)":
                               train_launches.get(name, 0)},
         max_abs_err=r["max_abs_err"],
@@ -3818,6 +4125,9 @@ def main() -> int:
             ("decode_attention", "src/repro/kernels/decode_attention.py:70",
              dec))]
     for row in kernels:
+        if row["name"] in gemma:
+            row["gemma_shape"] = dict(gemma[row["name"]],
+                                      launches=gemma_launches[row["name"]])
         if row["name"] == "flash_attention":
             row["train_shape"] = dict(flash_bwd["forward"], launches=(
                 train_launches["flash_attention"]))

@@ -2,7 +2,7 @@
 
 The JAX package's registry names ten architectures; the port has the
 modules of those whose serving path it runs so far (``xlstm_125m``,
-``yi_6b``, ``recurrentgemma_2b``).
+``yi_6b``, ``recurrentgemma_2b``, ``gemma_7b``).
 Naming another known architecture raises ``NotImplementedError``; an
 unknown name raises ``KeyError``, as the reference does.  Each module
 exports ``config()`` (the published configuration), ``tiny()`` (a reduced
@@ -33,7 +33,7 @@ ARCHS = [
     "xlstm_125m",
     "hubert_xlarge",
 ]
-PORTED = ("xlstm_125m", "yi_6b", "recurrentgemma_2b")
+PORTED = ("xlstm_125m", "yi_6b", "recurrentgemma_2b", "gemma_7b")
 
 # CLI ids (dashes) -> module names
 ALIASES = {a.replace("_", "-"): a for a in ARCHS}

@@ -5,6 +5,8 @@ rope_theta=5e6.  The same values as the JAX package's
 ``repro/configs/yi_6b.py``.
 """
 
+import dataclasses
+
 from repro_torch.configs.registry import ArchMeta
 from repro_torch.models.config import ModelConfig
 
@@ -25,3 +27,11 @@ def tiny() -> ModelConfig:
         n_layers=2, d_model=64, n_heads=8, n_kv_heads=2, head_dim=8,
         d_ff=160, vocab=251, activation="swiglu", rope_theta=5e6,
         dtype="float32")
+
+
+def tiny_card() -> ModelConfig:
+    """tiny() with its heads widened from 8 to 32 dimensions, the smallest
+    head dim the port's attention kernels take: what the examples run on
+    the card, where tiny()'s head dim 8 raises (the plain versions on the
+    CPU take both).  The JAX package has no such config."""
+    return dataclasses.replace(tiny(), name="yi-6b-tiny-dh32", head_dim=32)

@@ -123,6 +123,20 @@ def merged(names) -> MergedPolicy:
     return _MERGED[key]
 
 
+def host_schedulers() -> dict:
+    """Lock-policy name -> host admission-scheduler name (the
+    ``asl_schedule`` analogue), for policies that have one."""
+    return {p.name: p.host_scheduler for p in REGISTRY.values()
+            if p.host_scheduler}
+
+
+def dispatch_names() -> tuple:
+    """Fleet-dispatch policy names (:mod:`repro_torch.serving.dispatch`),
+    in registry order."""
+    return tuple(p.host_dispatch for p in REGISTRY.values()
+                 if p.host_dispatch)
+
+
 # Import order == registry order == policy ids.
 from repro_torch.core.policies import fifo as _fifo      # noqa: E402,F401
 from repro_torch.core.policies import tas as _tas        # noqa: E402,F401
@@ -134,4 +148,4 @@ from repro_torch.core.policies import dvfs_race as _dvfs  # noqa: E402,F401
 from repro_torch.core.policies import keyshard as _ks    # noqa: E402,F401
 
 __all__ = ["LockPolicy", "REGISTRY", "register", "get", "policy_ids",
-           "MergedPolicy", "merged"]
+           "MergedPolicy", "merged", "host_schedulers", "dispatch_names"]

@@ -47,12 +47,13 @@ class PSpec:
 
 def ein(eq: str, *args: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Projection einsum whose result is in ``dtype``, as the reference's
-    ``preferred_element_type=dtype``: an f32 result takes the f32 product
-    of the (lower-precision) inputs; a bf16 result is a bf16 einsum, which
-    accumulates in f32 and rounds once."""
-    if dtype == torch.float32:
-        args = tuple(a.float() for a in args)
-    return torch.einsum(eq, *args).to(dtype)
+    ``jnp.einsum(..., preferred_element_type=dtype)`` compiles: each
+    operand is converted to ``dtype`` first, then multiplied with an f32
+    accumulator and rounded once.  So an f32 result is the f32 product of
+    the (widened) inputs, and a bf16 result of an f32 activation and bf16
+    weights is the bf16 product of the activation rounded to bf16
+    (``tests/test_torch_emb_scale.py`` holds both bit for bit)."""
+    return torch.einsum(eq, *(a.to(dtype) for a in args)).to(dtype)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float):

@@ -311,9 +311,15 @@ def cache_to_reference(cache):
 # ---------------------------------------------------------------------------
 
 def _embed_tokens(p: dict, cfg: ModelConfig, tokens):
+    """The token embeddings in the compute dtype; with ``emb_scale``,
+    widened to f32 and times sqrt(d_model) in f32.  The reference
+    multiplies by ``np.sqrt``'s f64 scalar, which JAX takes as a strongly
+    typed f32, so an embedding-scaled model's residual stream is f32 from
+    here on (its norms return f32, its projections round their input to
+    the compute dtype)."""
     x = p["embed"][tokens].to(cfg.compute_dtype())
     if cfg.emb_scale:
-        x = x * np.sqrt(cfg.d_model)
+        x = x.float() * np.float32(np.sqrt(cfg.d_model))
     return x
 
 

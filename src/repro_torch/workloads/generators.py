@@ -436,6 +436,14 @@ class ServiceSpec:
                              f"one of {sorted(SERVICES)}")
 
 
+# Shape of the legacy ``rng.lognormal(log(m), 0.3)`` service draw of the
+# fleet dispatcher: cv = sqrt(exp(0.09) - 1), and its *mean* was
+# m * exp(0.045) (m was the median).  ServiceSpec is mean-parameterized,
+# so the legacy calibration needs the inflation too.
+LEGACY_LOGNORMAL_CV = float(np.sqrt(np.expm1(0.3 ** 2)))
+LEGACY_LOGNORMAL_MEAN = float(np.exp(0.5 * 0.3 ** 2))
+
+
 def arrival_times(spec: ArrivalSpec, duration: float, seed: int,
                   *, stream: int = STREAM_THINK) -> np.ndarray:
     """Arrival times in [0, duration), deterministic per (spec, seed): gap

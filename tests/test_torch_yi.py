@@ -331,8 +331,8 @@ def test_what_is_not_ported_raises():
     for frontend in ("vision_stub", "audio_stub"):
         with pytest.raises(NotImplementedError, match=frontend):
             tlm.build_schema(dataclasses.replace(cfg, frontend=frontend))
-    with pytest.raises(NotImplementedError, match="gemma_7b"):
-        treg.get("gemma-7b")
+    with pytest.raises(NotImplementedError, match="hubert_xlarge"):
+        treg.get("hubert-xlarge")
     moe = dataclasses.replace(cfg, n_experts=4, top_k=2)
     with pytest.raises(NotImplementedError, match="mixture-of-experts"):
         tlayers.attn_schema(moe, local=True)
