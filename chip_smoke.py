@@ -183,6 +183,17 @@ Phases, each of which fails the script (non-zero exit, no result line):
     cost model at a rate set from both calibrated costs, with both
     attention counters set to 0 just before and read just after.  The
     gemma-7b weights are freed.
+13e-13h. phi3.5-moe-42b, grok-1-314b, llama3-405b and qwen1.5-110b, each
+    at every published width with its layers cut to fit one card (16, 4,
+    6 and 16 layers; ``CUT_MODELS``; bf16 at rest and in compute), one
+    after another, each one's weights freed before the next: both
+    attention kernels at its shapes (GQA groups 4, 6, 16 and 8 at head
+    dim 128, causal, unwindowed), as in 13b; the cut model as in 13c, its
+    mixture-of-experts blocks (phi3.5-moe, grok-1) cut into routing,
+    expert products and combine, with the (token, layer, choice) expert
+    ids that differ between the kernel and the plain path counted, and
+    the plain path run again with the kernel path's expert choices; and
+    served as in 13d.
 14. Hold ``flash_attention``'s log-sum-exp rows (the training forward's
     second output) and ``flash_attention_bwd`` against their plain
     versions on the card: f32 and bf16, head dims 32, 64, 128 and 256,
@@ -244,6 +255,7 @@ package is not next to it.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -294,6 +306,17 @@ RG = "recurrentgemma-2b"
 RG_PARAMS = 2_658_736_640
 GEMMA = "gemma-7b"
 GEMMA_PARAMS = 8_537_680_896
+# The architectures that do not fit one card at full depth, served at
+# every published width (d_model, heads, head dim, d_ff, experts, top-k,
+# vocab) with their layers cut to 39-46 GiB of bf16 weights, near
+# gemma-7b's 43.4 GiB peak: arch -> (layers at the cut, parameters at the
+# cut, layers and parameters at full depth).
+CUT_MODELS = {
+    "phi35-moe-42b": (16, 21_067_599_872, 32, 41_872_527_360),
+    "grok-1-314b": (4, 21_290_539_008, 64, 316_489_340_928),
+    "llama3-405b": (6, 23_328_931_840, 126, 405_853_388_800),
+    "qwen15-110b": (16, 24_235_122_688, 80, 111_209_914_368),
+}
 SERVE_DURATION_S = 600.0
 MODEL_LOGITS_TOL = 0.03
 ATTN_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
@@ -2585,8 +2608,12 @@ def timed_attn_layer(layers, lp, x, cfg, cache, spent, *, lengths=None,
     synchronisations: the f32 -> bf16 weight casts, the attention
     projections (q, k, v with RoPE, and the output), attention (the cache
     write, the decode mask's run and the kernel), and the FFN (norm,
-    gated FFN, residual).  Seconds add to ``spent``; -> (x, cache)."""
+    gated FFN, residual); a mixture-of-experts FFN in three: routing
+    (norm, router, top-k, positions and the scatter into the buffer), the
+    expert products, and the combine (with the residual).  Seconds add to
+    ``spent``; -> (x, cache)."""
     import torch
+    from repro_torch.models import moe
     dtype = cfg.compute_dtype()
     seg = segment_timer(spent)
     pc = seg("casts", lambda: cast_tree(lp, dtype))
@@ -2615,9 +2642,18 @@ def timed_attn_layer(layers, lp, x, cfg, cache, spent, *, lengths=None,
             start.expand(b) if local else None, dtype=dtype))
     x = seg("attention projections", lambda: x + layers.ein(
         "bshk,hkd->bsd", out, pc["wo"], dtype=dtype))
-    x = seg("ffn", lambda: x + layers.mlp_apply(
-        pc["mlp"], layers.rms_norm(x, lp["ln2"], cfg.norm_eps),
-        cfg.activation, dtype))
+    if not cfg.n_experts:
+        x = seg("ffn", lambda: x + layers.mlp_apply(
+            pc["mlp"], layers.rms_norm(x, lp["ln2"], cfg.norm_eps),
+            cfg.activation, dtype))
+        return x, new
+    buf, meta, _ = seg("moe routing", lambda: moe._route_local(
+        layers.rms_norm(x, lp["ln2"], cfg.norm_eps).reshape(b * s, -1),
+        pc["moe"]["router"], cfg, moe._capacity(b * s, cfg)))
+    out_buf = seg("expert products", lambda: moe._expert_ffn(
+        pc["moe"], buf, cfg, dtype))
+    x = seg("moe combine", lambda: x + moe._combine_local(
+        out_buf, meta, dtype).reshape(x.shape))
     return x, new
 
 
@@ -2764,27 +2800,92 @@ def fused_chunk_card_ms(fn, launches):
         v for k, v in split.items() if "fused_chunk" in k)
 
 
-def phase_full_model(arch, n_want, counters, plain, time_layer):
-    """``arch`` at its full config on the card: the parameter count, a
-    prefill and 8 decode steps through the kernels and through the plain
-    versions (``plain``, passed by name; logits held together), then where
-    a prefill's and a decode step's time goes (``time_layer(kind, lp, x,
-    cfg, cache, spent, lengths) -> x`` runs one block cut into segments)
-    and how much of each the card is busy.  ``counters`` name the kernel
-    wrappers whose launches each path prints.  -> the parameters."""
+@contextlib.contextmanager
+def expert_choices(moe, *, record=None, force=None):
+    """Within it, each call of ``moe._top_k`` (one a mixture-of-experts
+    layer a step) appends to the list ``record`` its expert ids and each
+    token's margin, the least gap between neighbours of its k + 1 largest
+    probabilities (a smaller one flips its choices or their order); or,
+    with
+    ``force`` (an iterator over such a list), takes the next ids from it,
+    with the gates this call's probabilities at those ids."""
+    import torch
+    orig = moe._top_k
+
+    def top_k(probs, k):
+        if force is not None:
+            idx, _ = next(force)
+            return probs.gather(-1, idx), idx
+        vals, idx = orig(probs, k)
+        top = torch.topk(probs, k + 1, dim=-1).values
+        record.append((idx.clone(), (top[:, :-1] - top[:, 1:]).amin(-1)))
+        return vals, idx
+    moe._top_k = top_k
+    try:
+        yield
+    finally:
+        moe._top_k = orig
+
+
+def routing_flips(a, b, n_layers) -> tuple:
+    """Two paths' records (:func:`expert_choices`) compared: (differing,
+    all) (token, layer, choice) expert ids, apart for the prefill (its
+    first ``n_layers`` calls) and the decode steps; and where they first
+    differ (the first call, with the same ids at every layer before it,
+    so only the attention paths' difference reached it): (the call, the
+    tokens that differ, the largest margin of those tokens in either
+    path, the median margin of all tokens there), or None."""
+    import torch
+    out = {}
+    for name, sl in (("prefill", slice(0, n_layers)),
+                     ("decode", slice(n_layers, None))):
+        pairs = list(zip(a[sl], b[sl]))
+        out[name] = (sum(int((x[0] != y[0]).sum()) for x, y in pairs),
+                     sum(x[0].numel() for x, _ in pairs))
+    first = None
+    for i, ((ia, ma), (ib, mb)) in enumerate(zip(a, b)):
+        rows = (ia != ib).any(-1)
+        if bool(rows.any()):
+            first = (i, int(rows.sum()),
+                     float(torch.maximum(ma[rows], mb[rows]).max()),
+                     float(ma.median()))
+            break
+    return out, first
+
+
+def phase_full_model(arch, cfg, n_want, counters, plain, time_layer):
+    """``arch`` on the card at ``cfg`` (its full config, or one cut in
+    depth): the parameter count, a prefill and 8 decode steps through the
+    kernels and through the plain versions (``plain``, passed by name;
+    logits held together), then where a prefill's and a decode step's
+    time goes (``time_layer(kind, lp, x, cfg, cache, spent, lengths) -> x``
+    runs one block cut into segments) and how much of each the card is
+    busy.  ``counters`` name the kernel wrappers whose launches each path
+    prints.
+
+    A mixture-of-experts model's two paths may route a token near a top-k
+    tie to other experts (the attention paths differ in bf16): each
+    path's expert ids are recorded at every layer of the prefill and the
+    decode steps, and the ids that differ are counted.  The plain path
+    then runs again with the kernel path's expert choices; its logits are
+    held to the bar, and the free plain path's too where no id differs.
+    -> the parameters."""
     import torch
     from repro_torch.configs import registry
-    from repro_torch.models import lm
-    cfg = registry.get(arch)[0]
+    from repro_torch.models import lm, moe
     n = lm.n_params(cfg)
     if n != n_want or cfg.dtype != "bfloat16":
         raise AssertionError(f"{arch}: {n} parameters in {cfg.dtype}")
+    full = registry.get(arch)[0]
+    depth = "" if full.n_layers == cfg.n_layers else (
+        f"; cut to {cfg.n_layers} of {full.n_layers} layers, "
+        f"{lm.n_params(full)} parameters at full depth")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = lm.init_params(cfg, 0, device="cuda")
     torch.cuda.synchronize()
     print(f"{arch}: {n} parameters ({cfg.param_dtype} at rest, {cfg.dtype} "
-          f"compute), init {time.perf_counter() - t0:.3f} s, "
+          f"compute{depth}), init {time.perf_counter() - t0:.3f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
@@ -2792,11 +2893,12 @@ def phase_full_model(arch, n_want, counters, plain, time_layer):
     toks = torch.randint(0, cfg.vocab, (b, s + nd), generator=gen,
                          device="cuda")
     model_steps(lm, params, cfg, toks, 1)                       # warm
-    logits, times = {}, {}
+    logits, times, routes = {}, {}, {}
     for path, kernels in (("kernel", {}), ("plain", plain)):
         n0 = {k: f.launches for k, f in counters.items()}
-        logits[path], t_pre, t_dec = model_steps(lm, params, cfg, toks, nd,
-                                                 **kernels)
+        with expert_choices(moe, record=routes.setdefault(path, [])):
+            logits[path], t_pre, t_dec = model_steps(lm, params, cfg, toks,
+                                                     nd, **kernels)
         times[path] = (t_pre, t_dec)
         print(f"model {arch} {path} path: prefill {b} x {s} tokens "
               f"{t_pre * 1e3:.2f} ms, decode step {t_dec * 1e3:.2f} ms "
@@ -2813,7 +2915,45 @@ def phase_full_model(arch, n_want, counters, plain, time_layer):
           f"abs diff {err:.4g} (mean {mean:.3g}, largest logit "
           f"{float(w.abs().max()):.4g}), tolerance {tol:.4g} "
           f"({MODEL_LOGITS_TOL:.0%} of the largest): "
-          f"{'ok' if ok else 'FAILED'}", flush=True)
+          f"{'ok' if ok else 'over the bar'}", flush=True)
+    if cfg.n_experts:
+        flips, first = routing_flips(routes["kernel"], routes["plain"],
+                                     cfg.n_layers)
+        n_flips = sum(d for d, _ in flips.values())
+        print(f"model {arch} expert ids (token, layer, choice) that differ "
+              f"between the kernel and the plain path: " + ", ".join(
+                  f"{k} {d} of {t} ({d / t:.4%})"
+                  for k, (d, t) in flips.items()), flush=True)
+        if first is not None:
+            call, rows, margin, median = first
+            where = (f"prefill layer {call}" if call < cfg.n_layers else
+                     f"decode step {call // cfg.n_layers} layer "
+                     f"{call % cfg.n_layers}")
+            print(f"model {arch}: the paths first route apart at {where}: "
+                  f"{rows} tokens, each with a margin (the least gap "
+                  f"between neighbours of its {cfg.top_k + 1} largest "
+                  f"probabilities) of at most {margin:.3g} in either path "
+                  f"(median margin there {median:.3g}); later layers take "
+                  f"the moved tokens' changed residuals", flush=True)
+        force = iter(routes["kernel"])
+        with expert_choices(moe, force=force):
+            forced, _, _ = model_steps(lm, params, cfg, toks, nd, **plain)
+        if next(force, None) is not None:
+            raise AssertionError(f"{arch}: the plain path routed fewer "
+                                 f"times than the kernel path")
+        ferr = float((a - forced).abs().max())
+        ftol = MODEL_LOGITS_TOL * float(forced.abs().max())
+        fok = bool(torch.isfinite(forced).all()) and ferr <= ftol
+        print(f"model {arch} kernel path vs the plain path with its expert "
+              f"choices: max abs diff {ferr:.4g} (mean "
+              f"{float((a - forced).abs().mean()):.3g}), tolerance "
+              f"{ftol:.4g}: {'ok' if fok else 'FAILED'}", flush=True)
+        if not ok and n_flips:
+            print(f"model {arch}: the free plain path is over the bar, and "
+                  f"{n_flips} expert ids differ between the paths; with "
+                  f"the kernel path's choices it is "
+                  f"{'within' if fok else 'over'} the bar", flush=True)
+        ok = fok and (ok or n_flips > 0)
     if not ok:
         raise AssertionError(f"{arch} logits: kernel path != plain path")
     # Where a prefill's and a decode step's time goes.
@@ -2859,34 +2999,41 @@ def phase_full_model(arch, n_want, counters, plain, time_layer):
     return params
 
 
-def phase_yi_model(fa, da):
-    """yi-6b at its full config on the card (:func:`phase_full_model`),
-    each attention block cut into casts, projections, attention and FFN.
-    -> the parameters, for the serve phase."""
+def phase_attn_model(fa, da, arch, cfg, n_want):
+    """``arch``, a model of attention blocks, at ``cfg`` on the card
+    (:func:`phase_full_model`), each block cut into casts, projections,
+    attention and FFN (a mixture of experts: routing, expert products and
+    combine).  -> the parameters, for the serve phase."""
     from repro_torch.models import layers
 
     def time_layer(kind, lp, x, cfg, cache, spent, lengths):
         return timed_attn_layer(layers, lp, x, cfg, cache, spent,
                                 lengths=lengths)[0]
     return phase_full_model(
-        YI, YI_PARAMS, {"flash_attention": fa.flash_attention,
-                        "decode_attention": da.decode_attention},
+        arch, cfg, n_want, {"flash_attention": fa.flash_attention,
+                            "decode_attention": da.decode_attention},
         dict(flash_attention=fa.flash_attention_ref,
              decode_attention=da.decode_attention_ref), time_layer)
 
 
-def phase_serve_once(arch, counters, params, *, with_decode) -> tuple:
+def phase_yi_model(fa, da):
+    """yi-6b at its full config on the card (:func:`phase_attn_model`).
+    -> the parameters, for the serve phase."""
+    from repro_torch.configs import registry
+    return phase_attn_model(fa, da, YI, registry.get(YI)[0], YI_PARAMS)
+
+
+def phase_serve_once(arch, cfg, counters, params, *, with_decode) -> tuple:
     """``arch``'s serving path: calibrate once on the card, then asl, fifo
     and greedy answer one Poisson stream on that cost model for
     SERVE_DURATION_S, with a TTFT SLO of 4 x the mean prompt's prefill.
     The rate puts half of the slot on the mean request: its prompt's
     prefill chunks, and (``with_decode``) its mean new tokens decoded at
     batch 1.  The kernel counters are set to 0 just before and read just
-    after.  -> (launches, rate, SLO)."""
-    from repro_torch.configs import registry
+    after.  ``cfg`` is ``arch``'s config (full, or cut in depth).  ->
+    (launches, rate, SLO)."""
     from repro_torch.launch import serve
     from repro_torch.models import lm
-    cfg = registry.get(arch)[0]
     for f in counters.values():
         f.launches = 0
         for extra in ("launches_tc", "launches_split", "launches_decode"):
@@ -3102,6 +3249,7 @@ def phase_rg_model(rs, fa, da):
     projections, conv and gates, ``rglru_scan`` and FFN, and each local
     attention block into casts, projections, attention and FFN.  -> the
     parameters, for the serve phase."""
+    from repro_torch.configs import registry
     from repro_torch.kernels import ops
     from repro_torch.models import layers, rglru
 
@@ -3112,9 +3260,9 @@ def phase_rg_model(rs, fa, da):
         return timed_attn_layer(layers, lp, x, cfg, cache, spent,
                                 lengths=lengths, local=True)[0]
     return phase_full_model(
-        RG, RG_PARAMS, {"rglru_scan": rs.rglru_scan,
-                        "flash_attention": fa.flash_attention,
-                        "decode_attention": da.decode_attention},
+        RG, registry.get(RG)[0], RG_PARAMS,
+        {"rglru_scan": rs.rglru_scan, "flash_attention": fa.flash_attention,
+         "decode_attention": da.decode_attention},
         dict(rglru_scan=rs.rglru_scan_ref,
              flash_attention=fa.flash_attention_ref,
              decode_attention=da.decode_attention_ref), time_layer)
@@ -3124,9 +3272,9 @@ def phase_rg_model(rs, fa, da):
 # gemma-7b: the attention kernels at its shapes, the model and its server
 # ---------------------------------------------------------------------------
 
-def phase_gemma_kernels(fa, da) -> dict:
-    """``flash_attention`` and ``decode_attention`` at gemma-7b's serving
-    shapes (16 q heads on 16 kv heads of 256: group 1, bf16): a causal
+def phase_attention_shapes(fa, da, arch, h, kh, dh, seed) -> dict:
+    """``flash_attention`` and ``decode_attention`` at ``arch``'s serving
+    shapes (``h`` q heads on ``kh`` kv heads of ``dh``, bf16): a causal
     unwindowed prefill of SERVE_CHUNK tokens (and its ragged edges), and a
     decode over the full 2 x SERVE_CHUNK-slot cache at lengths from 1 to
     every slot, split and unsplit, each against its plain version; then
@@ -3134,48 +3282,87 @@ def phase_gemma_kernels(fa, da) -> dict:
     versions and PyTorch's fused attention.  -> {kernel: timing}."""
     import torch
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(4)
-    b, h, dh, s, t = SERVE_BATCH, 16, 256, SERVE_CHUNK, 2 * SERVE_CHUNK
+    gen.manual_seed(seed)
+    b, s, t = SERVE_BATCH, SERVE_CHUNK, 2 * SERVE_CHUNK
+    heads = f"H={h} K={kh} (group {h // kh})"
     bad = []
     for sq, tk in ((s, s), (1, s), (s - 1, s), (s + 1, s + 1), (64, t)):
-        err, ok = flash_case(fa, gen, b, h, h, sq, tk, dh, torch.bfloat16,
+        err, ok = flash_case(fa, gen, b, h, kh, sq, tk, dh, torch.bfloat16,
                              True, 0)
-        print(f"flash_attention {GEMMA} B={b} H=K={h} dh={dh} S={sq} "
+        print(f"flash_attention {arch} B={b} {heads} dh={dh} S={sq} "
               f"T={tk} causal bf16: max abs err {err:.3g}"
               f"{'' if ok else ' OVER TOLERANCE'}", flush=True)
         bad += [] if ok else [("flash", sq, tk)]
     for lengths in ([1] * b, [s + 1] * b, [t - 1] * b, [t] * b,
                     [0, 1, 17, 255, 256, 257, 511, 512]):
-        err, ok = decode_case(da, gen, b, h, h, t, dh, torch.bfloat16,
+        err, ok = decode_case(da, gen, b, h, kh, t, dh, torch.bfloat16,
                               lengths)
-        print(f"decode_attention {GEMMA} B={b} H=K={h} T={t} dh={dh} "
+        print(f"decode_attention {arch} B={b} {heads} T={t} dh={dh} "
               f"lengths {sorted(set(lengths))} bf16, split and unsplit: "
               f"max abs err {err:.3g}{'' if ok else ' OVER TOLERANCE'}",
               flush=True)
         bad += [] if ok else [("decode", lengths)]
     if bad:
-        raise AssertionError(f"{GEMMA} attention shapes != plain: {bad}")
+        raise AssertionError(f"{arch} attention shapes != plain: {bad}")
     return {"flash_attention": flash_timing(
-                fa, gen, f"{GEMMA} serve", b, h, h, s, dh, 0),
+                fa, gen, f"{arch} serve", b, h, kh, s, dh, 0),
             "decode_attention": decode_timing(
-                da, gen, b, h, h, t, dh, s + 1, None)}
+                da, gen, b, h, kh, t, dh, s + 1, None)}
+
+
+def phase_gemma_kernels(fa, da) -> dict:
+    """Both attention kernels at gemma-7b's serving shapes (16 q heads on
+    16 kv heads of 256: group 1; :func:`phase_attention_shapes`)."""
+    return phase_attention_shapes(fa, da, GEMMA, 16, 16, 256, 4)
 
 
 def phase_gemma_model(fa, da):
-    """gemma-7b at its full config on the card (:func:`phase_full_model`:
-    34.2 GB of f32 weights), each attention block cut into casts,
-    projections, attention and FFN.  -> the parameters, for the serve
-    phase."""
-    from repro_torch.models import layers
+    """gemma-7b at its full config on the card (:func:`phase_attn_model`:
+    34.2 GB of f32 weights).  -> the parameters, for the serve phase."""
+    from repro_torch.configs import registry
+    return phase_attn_model(fa, da, GEMMA, registry.get(GEMMA)[0],
+                            GEMMA_PARAMS)
 
-    def time_layer(kind, lp, x, cfg, cache, spent, lengths):
-        return timed_attn_layer(layers, lp, x, cfg, cache, spent,
-                                lengths=lengths)[0]
-    return phase_full_model(
-        GEMMA, GEMMA_PARAMS, {"flash_attention": fa.flash_attention,
-                              "decode_attention": da.decode_attention},
-        dict(flash_attention=fa.flash_attention_ref,
-             decode_attention=da.decode_attention_ref), time_layer)
+
+# ---------------------------------------------------------------------------
+# phi3.5-moe, grok-1, llama3-405b and qwen1.5-110b at every width, cut in
+# depth: the attention kernels at their shapes, the models and their
+# servers
+# ---------------------------------------------------------------------------
+
+def phase_cut_models(fa, da, laps) -> dict:
+    """Each of ``CUT_MODELS`` in turn: its full config's depth and
+    parameters checked, both attention kernels at its shapes
+    (:func:`phase_attention_shapes`), the model cut in depth on the card
+    (:func:`phase_attn_model`), then served (:func:`phase_serve_once`);
+    its weights freed before the next.  -> {arch: (kernel timings, serve
+    launches, GQA group)}."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+    counters = {"flash_attention": fa.flash_attention,
+                "decode_attention": da.decode_attention}
+    out = {}
+    for seed, (arch, (cut, n_cut, depth, n_full)) in enumerate(
+            CUT_MODELS.items(), start=5):
+        full = registry.get(arch)[0]
+        if (full.n_layers, lm.n_params(full)) != (depth, n_full):
+            raise AssertionError(f"{arch}: {full.n_layers} layers, "
+                                 f"{lm.n_params(full)} parameters")
+        cfg = dataclasses.replace(full, n_layers=cut)
+        h, kh = cfg.n_heads, cfg.n_kv_heads
+        shapes = phase_attention_shapes(fa, da, arch, h, kh, cfg.head_dim,
+                                        seed)
+        params = phase_attn_model(fa, da, arch, cfg, n_cut)
+        launches, _, _ = phase_serve_once(arch, cfg, counters, params,
+                                          with_decode=True)
+        del params
+        torch.cuda.empty_cache()
+        out[arch] = (shapes, launches, h // kh)
+        laps.lap(f"13e-13h {arch}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3938,6 +4125,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     try:
+        from repro_torch.configs import registry
         from repro_torch.core import simlock as sl
         from repro_torch.kernels import build, simstep
         from repro_torch.kernels import mlstm_scan as ms
@@ -3999,10 +4187,10 @@ def main() -> int:
         dec = phase_decode(da)
         laps.lap("7-8 attention")
         params = phase_yi_model(fa, da)
+        attn = {"flash_attention": fa.flash_attention,
+                "decode_attention": da.decode_attention}
         yi_launches, rate, slo = phase_serve_once(
-            YI, {"flash_attention": fa.flash_attention,
-                 "decode_attention": da.decode_attention}, params,
-            with_decode=False)
+            YI, registry.get(YI)[0], attn, params, with_decode=False)
         del params
         torch.cuda.empty_cache()
         phase_yi_cli(rate, slo)
@@ -4010,9 +4198,8 @@ def main() -> int:
         rglru = phase_rglru(rs, build)
         params = phase_rg_model(rs, fa, da)
         rg_launches, _, _ = phase_serve_once(
-            RG, {"rglru_scan": rs.rglru_scan,
-                 "flash_attention": fa.flash_attention,
-                 "decode_attention": da.decode_attention}, params,
+            RG, registry.get(RG)[0], {"rglru_scan": rs.rglru_scan, **attn},
+            params,
             with_decode=True)
         if rg_launches["rglru_scan"] <= rg_launches["rglru_scan decode"]:
             raise AssertionError(f"the {RG} serving path launched no "
@@ -4023,12 +4210,11 @@ def main() -> int:
         gemma = phase_gemma_kernels(fa, da)
         params = phase_gemma_model(fa, da)
         gemma_launches, _, _ = phase_serve_once(
-            GEMMA, {"flash_attention": fa.flash_attention,
-                    "decode_attention": da.decode_attention}, params,
-            with_decode=True)
+            GEMMA, registry.get(GEMMA)[0], attn, params, with_decode=True)
         del params
         torch.cuda.empty_cache()
         laps.lap("13b-13d gemma-7b")
+        cut = phase_cut_models(fa, da, laps)
         t0 = time.time()
         flash_bwd = phase_flash_bwd(fa, fb)
         rglru_bwd = phase_rglru_bwd(rs)
@@ -4128,6 +4314,13 @@ def main() -> int:
         if row["name"] in gemma:
             row["gemma_shape"] = dict(gemma[row["name"]],
                                       launches=gemma_launches[row["name"]])
+            row["cut_model_shapes"] = {
+                arch: dict(shapes[row["name"]], group=group,
+                           launches=launches[row["name"]])
+                for arch, (shapes, launches, group) in cut.items()}
+            row["launches_by_path"].update({
+                f"{arch} serve (cut)": launches[row["name"]]
+                for arch, (_, launches, _) in cut.items()})
         if row["name"] == "flash_attention":
             row["train_shape"] = dict(flash_bwd["forward"], launches=(
                 train_launches["flash_attention"]))

@@ -2,7 +2,9 @@
 
 The JAX package's registry names ten architectures; the port has the
 modules of those whose serving path it runs so far (``xlstm_125m``,
-``yi_6b``, ``recurrentgemma_2b``, ``gemma_7b``).
+``yi_6b``, ``recurrentgemma_2b``, ``gemma_7b``, the mixture-of-experts
+``phi35_moe_42b`` and ``grok_1_314b``, and the dense ``llama3_405b`` and
+``qwen15_110b``; the last four do not fit one card at full depth).
 Naming another known architecture raises ``NotImplementedError``; an
 unknown name raises ``KeyError``, as the reference does.  Each module
 exports ``config()`` (the published configuration), ``tiny()`` (a reduced
@@ -33,7 +35,8 @@ ARCHS = [
     "xlstm_125m",
     "hubert_xlarge",
 ]
-PORTED = ("xlstm_125m", "yi_6b", "recurrentgemma_2b", "gemma_7b")
+PORTED = ("xlstm_125m", "yi_6b", "recurrentgemma_2b", "gemma_7b",
+          "phi35_moe_42b", "grok_1_314b", "llama3_405b", "qwen15_110b")
 
 # CLI ids (dashes) -> module names
 ALIASES = {a.replace("_", "-"): a for a in ARCHS}

@@ -1,6 +1,7 @@
 """Shared model layers of the port: the schema leaf, the projection
 einsum, RMS norm, RoPE, GQA attention, the gated FFN and the attention
-block with its KV cache.
+block with its KV cache (its FFN the mixture of experts of
+:mod:`repro_torch.models.moe` when the config has ``n_experts``).
 
 Attention runs in the port's kernels: prefill and training in
 ``flash_attention`` and decode in ``decode_attention``
@@ -192,10 +193,10 @@ def attn_schema(cfg: ModelConfig, *, local: bool) -> dict:
         sch["bk"] = PSpec((k, dh), ("kv_heads", "head_dim"), ("zeros",))
         sch["bv"] = PSpec((k, dh), ("kv_heads", "head_dim"), ("zeros",))
     if cfg.n_experts:
-        raise NotImplementedError(
-            f"mixture-of-experts blocks ({cfg.name}) are not ported to "
-            f"repro_torch yet")
-    sch["mlp"] = mlp_schema(d, f, cfg.activation)
+        from repro_torch.models.moe import moe_schema  # (cycle)
+        sch["moe"] = moe_schema(cfg)
+    else:
+        sch["mlp"] = mlp_schema(d, f, cfg.activation)
     return sch
 
 
@@ -213,10 +214,15 @@ def _qkv(p, x, cfg: ModelConfig, positions, dtype):
 
 
 def _out_and_mlp(p, x, out, cfg: ModelConfig, dtype):
-    """Output projection, residual, and the FFN's residual branch."""
+    """Output projection, residual, and the FFN's residual branch: the
+    mixture of experts when ``cfg.n_experts`` (its load-balance term is
+    dropped, as the reference's blocks drop it)."""
     out = ein("bshk,hkd->bsd", out, p["wo"].to(dtype), dtype=dtype)
     x = x + out
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    if cfg.n_experts:
+        from repro_torch.models.moe import moe_apply  # (cycle)
+        return x + moe_apply(p["moe"], h2, cfg)[0]
     return x + mlp_apply(p["mlp"], h2, cfg.activation, dtype)
 
 

@@ -3,8 +3,9 @@
 A :class:`~repro_torch.models.config.ModelConfig` picks a mixer per layer
 from its block pattern: full or local attention (``attn`` /
 ``local_attn``), the RG-LRU recurrence (``rglru``) or the xLSTM family
-(``mlstm`` / ``slstm``), on token inputs.  A modality frontend or a
-mixture-of-experts layer raises ``NotImplementedError`` naming it.
+(``mlstm`` / ``slstm``), on token inputs; an attention block's FFN is a
+mixture of experts when the config has ``n_experts``.  A modality
+frontend raises ``NotImplementedError`` naming it.
 
 Parameters live in :class:`Model`, an ``nn.Module`` whose parameter names
 mirror the JAX package's tree (``embed``, ``final_ln``, ``unembed``, and
@@ -153,12 +154,41 @@ def n_params(cfg: ModelConfig) -> int:
     return count(build_schema(cfg))
 
 
+# Elements of one f32 draw of a leaf that is not f32 at rest (1 GiB).
+DRAW_CHUNK = 1 << 28
+
+
+def _normal(shape: tuple, scale: float, gen: torch.Generator, dtype,
+            device) -> torch.Tensor:
+    """Normal(0, scale) values drawn in f32 and cast to ``dtype``.  A leaf
+    that is not f32 and holds more than ``DRAW_CHUNK`` elements is drawn
+    in slices of its leading axis (each slice split again the same way),
+    so the f32 draw never holds more than a slice beside the weights: a
+    bf16 expert leaf at a full width holds billions of elements.  An f32
+    leaf is drawn whole: the models f32 at rest (xlstm-125m, yi-6b,
+    recurrentgemma-2b, gemma-7b) draw the values one ``torch.randn`` of
+    the leaf gives."""
+    n = int(np.prod(shape))
+    if dtype == torch.float32 or n <= DRAW_CHUNK or len(shape) < 2:
+        x = torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device=device)
+        return x.mul_(scale).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    step = DRAW_CHUNK // (n // shape[0])
+    if step == 0:                       # a slice is over the chunk: split it
+        for i in range(shape[0]):
+            out[i] = _normal(shape[1:], scale, gen, dtype, device)
+        return out
+    for i in range(0, shape[0], step):
+        out[i:i + step] = _normal((min(step, shape[0] - i),) + shape[1:],
+                                  scale, gen, dtype, device)
+    return out
+
+
 def _init_leaf(ps: PSpec, gen: torch.Generator, dtype, device):
     kind = ps.init[0]
     if kind == "normal":
-        x = torch.randn(ps.shape, generator=gen, dtype=torch.float32,
-                        device=device)
-        return x.mul_(ps.init[1]).to(dtype)
+        return _normal(tuple(ps.shape), ps.init[1], gen, dtype, device)
     if kind == "zeros":
         return torch.zeros(ps.shape, dtype=dtype, device=device)
     if kind == "ones":

@@ -333,8 +333,14 @@ def test_what_is_not_ported_raises():
             tlm.build_schema(dataclasses.replace(cfg, frontend=frontend))
     with pytest.raises(NotImplementedError, match="hubert_xlarge"):
         treg.get("hubert-xlarge")
+    # The mixture of experts is ported: the reference's "moe" subtree.
     moe = dataclasses.replace(cfg, n_experts=4, top_k=2)
-    with pytest.raises(NotImplementedError, match="mixture-of-experts"):
-        tlayers.attn_schema(moe, local=True)
-    with pytest.raises(NotImplementedError, match="mixture-of-experts"):
-        tlm.build_schema(moe)
+    sch = tlayers.attn_schema(moe, local=True)
+    assert "mlp" not in sch and sorted(sch["moe"]) == ["router", "w1", "w2",
+                                                       "wg"]
+    want = jlayers.attn_schema(dataclasses.replace(
+        jreg.get_tiny("yi-6b"), n_experts=4, top_k=2), local=True)["moe"]
+    assert {k: (v.shape, v.axes, v.init) for k, v in sch["moe"].items()} \
+        == {k: (v.shape, v.axes, v.init) for k, v in want.items()}
+    assert sch["moe"]["w1"].shape == (4, cfg.d_model, cfg.d_ff)
+    assert "moe" in tlm.build_schema(moe)["layers"]
