@@ -194,6 +194,29 @@ Phases, each of which fails the script (non-zero exit, no result line):
     ids that differ between the kernel and the plain path counted, and
     the plain path run again with the kernel path's expert choices; and
     served as in 13d.
+13i. llava-next-mistral-7b at its full config (7,241,732,096 parameters,
+    f32 at rest, bf16 compute; the ``vision_stub`` frontend): both
+    attention kernels at its shapes (32 q heads on 8 kv heads of 128), a
+    causal prefill of 3,008 positions and its ragged edges, a decode over
+    the 4,096-slot cache at lengths up to 3,016, split and unsplit, each
+    against its plain version and timed beside its bound, the plain
+    version and PyTorch's fused attention; then the model through
+    ``lm.prefill`` (8 prompts of 2,880 patch embeddings and 128 tokens)
+    and 8 ``lm.decode_step``s, kernel path against plain path (logits
+    within 3 % of the largest; every ``flash_attention`` launch on the
+    tensor-core route, every ``decode_attention`` call split); a
+    prefill's and a decode step's time split into casts, projections,
+    attention, FFN and unembedding; the device idle share and peak
+    memory.  The weights are freed.
+13j. hubert-xlarge at its full config (944,487,680 parameters; the
+    ``audio_stub`` frontend, encoder-only): ``flash_attention`` at head
+    dim 80, bidirectional, f32 and bf16, S/T of 1/1, 63/65, 77/300,
+    1,000/1,000 and 4,096/4,096 (``DH80_LENGTHS``), each against its
+    plain version (3e-5, 2e-2) and timed beside its bound, the plain
+    version and PyTorch's fused attention; a dh-80 ``flash_attention_bwd``
+    and ``decode_attention`` call must raise; then ``lm.forward`` of 8 x
+    1,000 frames, kernel path against plain path (3 %; 48 tensor-core
+    launches), its time split as in 13i, idle share and peak memory.
 14. Hold ``flash_attention``'s log-sum-exp rows (the training forward's
     second output) and ``flash_attention_bwd`` against their plain
     versions on the card: f32 and bf16, head dims 32, 64, 128 and 256,
@@ -270,6 +293,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12      # H100 SXM non-tensor f32 rate
 BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core rate
+F32_OPS_PER_S = 67e12       # H100 SXM f32 rate outside the tensor cores
 
 # The serving path: xlstm-125m at its full config, the calibration's
 # shapes (launch/serve.py: batch 8, prefill chunk 256), and a Poisson
@@ -317,6 +341,25 @@ CUT_MODELS = {
     "llama3-405b": (6, 23_328_931_840, 126, 405_853_388_800),
     "qwen15-110b": (16, 24_235_122_688, 80, 111_209_914_368),
 }
+# The two frontend models at their full configs (f32 at rest, bf16
+# compute), through lm's model functions (neither serves: the reference's
+# serve CLI feeds llava tokens only and refuses the encoder-only hubert).
+# llava-next-mistral-7b (hf:llava-hf/llava-v1.6-mistral-7b-hf): 8 prompts
+# of the config's 2,880 patch embeddings (base 576 + 4 anyres tiles x 576)
+# and 128 text tokens, 3,008 positions into a 4,096-slot cache, then 8
+# decode steps.  hubert-xlarge (arXiv:2106.07447): an encoder forward of 8
+# utterances of 1,000 frames (20 s of 16 kHz audio at 50 frames/s; the
+# last 64-row tile ragged), bidirectional attention at head dim 80.
+LLAVA = "llava-next-mistral-7b"
+LLAVA_PARAMS = 7_241_732_096
+LLAVA_TEXT, LLAVA_CACHE = 128, 4096
+HUBERT = "hubert-xlarge"
+HUBERT_PARAMS = 944_487_680
+HUBERT_FRAMES = 1000
+FRONTEND_DECODE = 8
+# S/T of phase 13j's dh-80 flash_attention checks (batch 8 at the model's
+# 1,000 frames, else 2).
+DH80_LENGTHS = ((1, 1), (63, 65), (77, 300), (1000, 1000), (4096, 4096))
 SERVE_DURATION_S = 600.0
 MODEL_LOGITS_TOL = 0.03
 ATTN_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
@@ -2215,11 +2258,12 @@ def median_ms(fn, reps=10) -> tuple:
     return sorted(times)[1], times
 
 
-def bound(n_bytes, flops) -> tuple:
-    """The least time of the work: bytes over the memory rate or bf16
-    tensor-core operations over their peak, the larger."""
+def bound(n_bytes, flops, ops_per_s=BF16_OPS_PER_S) -> tuple:
+    """The least time of the work: bytes over the memory rate or
+    operations over their peak (bf16 tensor cores unless given), the
+    larger."""
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / BF16_OPS_PER_S * 1e3
+    ops_ms = flops / ops_per_s * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
                                                            "operations")
 
@@ -2604,7 +2648,8 @@ def cast_tree(tree, dtype):
 def timed_attn_layer(layers, lp, x, cfg, cache, spent, *, lengths=None,
                      local=False):
     """One attention block, as ``layers.attn_block_prefill`` /
-    ``attn_block_decode`` run it, cut into segments bracketed by
+    ``attn_block_decode`` run it (``attn_block_apply`` with no ``cache``),
+    cut into segments bracketed by
     synchronisations: the f32 -> bf16 weight casts, the attention
     projections (q, k, v with RoPE, and the output), attention (the cache
     write, the decode mask's run and the kernel), and the FFN (norm,
@@ -2626,10 +2671,11 @@ def timed_attn_layer(layers, lp, x, cfg, cache, spent, *, lengths=None,
         pc, layers.rms_norm(x, lp["ln1"], cfg.norm_eps), cfg, positions,
         dtype))
     if lengths is None:
-        new = seg("attention", lambda: {n: torch.cat(
-            [t, cache[n][:, s:]], dim=1) for n, t in (("k", k), ("v", v))})
+        new = None if cache is None else seg("attention", lambda: {
+            n: torch.cat([t, cache[n][:, s:]], dim=1)
+            for n, t in (("k", k), ("v", v))})
         out = seg("attention", lambda: layers.attention(
-            q, k, v, causal=True, window=window, dtype=dtype))
+            q, k, v, causal=cfg.causal, window=window, dtype=dtype))
     else:
         t_cache = cache["k"].shape[1]
         slot = torch.remainder(lengths[0].long(), t_cache)
@@ -3363,6 +3409,346 @@ def phase_cut_models(fa, da, laps) -> dict:
         out[arch] = (shapes, launches, h // kh)
         laps.lap(f"13e-13h {arch}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# llava-next-mistral-7b and hubert-xlarge: the two frontends at full config
+# and flash_attention at head dim 80
+# ---------------------------------------------------------------------------
+
+def phase_llava_kernels(fa, da) -> dict:
+    """``flash_attention`` and ``decode_attention`` at llava's shapes (32
+    q heads on 8 kv heads of 128, bf16): its causal prefill of 3,008
+    positions (and the ragged edges around it), and a decode over the
+    4,096-slot cache at lengths up to 3,016, split and unsplit, each
+    against its plain version; then both timed at those shapes beside
+    their bounds, the plain versions and PyTorch's fused attention.
+    -> {kernel: timing}."""
+    import torch
+    from repro_torch.configs import registry
+    cfg = registry.get(LLAVA)[0]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    b, h, kh, dh = SERVE_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    s, t = cfg.n_patches + LLAVA_TEXT, LLAVA_CACHE
+    last = s + FRONTEND_DECODE
+    bad = []
+    for sq, tk in ((s, s), (1, s), (s - 1, s), (s + 1, s + 1), (64, t)):
+        err, ok = flash_case(fa, gen, b, h, kh, sq, tk, dh, torch.bfloat16,
+                             True, 0)
+        print(f"flash_attention {LLAVA} B={b} H={h} K={kh} dh={dh} S={sq} "
+              f"T={tk} causal bf16: max abs err {err:.3g}"
+              f"{'' if ok else ' OVER TOLERANCE'}", flush=True)
+        bad += [] if ok else [("flash", sq, tk)]
+    for lengths in ([1] * b, [s] * b, [s + 1] * b, [last] * b,
+                    [0, 1, 17, cfg.n_patches, s, s + 1, s + 4, last]):
+        err, ok = decode_case(da, gen, b, h, kh, t, dh, torch.bfloat16,
+                              lengths)
+        print(f"decode_attention {LLAVA} B={b} H={h} K={kh} T={t} dh={dh} "
+              f"lengths {sorted(set(lengths))} bf16, split and unsplit: "
+              f"max abs err {err:.3g}{'' if ok else ' OVER TOLERANCE'}",
+              flush=True)
+        bad += [] if ok else [("decode", lengths)]
+    if bad:
+        raise AssertionError(f"{LLAVA} attention shapes != plain: {bad}")
+    return {"flash_attention": flash_timing(
+                fa, gen, f"{LLAVA} prefill", b, h, kh, s, dh, 0),
+            "decode_attention": decode_timing(
+                da, gen, b, h, kh, t, dh, s + 1, None)}
+
+
+def dh80_timing(fa, gen, b, h, kh, s, t, dh, dtype) -> dict:
+    """One bidirectional shape in the model's layout (transposed views):
+    the kernel timed against its bound (bf16 on the tensor cores, f32 on
+    the f32 pipes), the plain version and PyTorch's fused attention, and
+    held to the plain version."""
+    import torch
+    f = lambda *shape: torch.randn(*shape, generator=gen, device="cuda") \
+        .to(dtype)
+    q, k, v = (x.transpose(1, 2) for x in (f(b, s, h, dh), f(b, t, kh, dh),
+                                            f(b, t, kh, dh)))
+    kernel_ms, times = median_ms(
+        lambda: fa.flash_attention(q, k, v, causal=False))
+    _, dev_ms, _ = device_busy(
+        lambda: fa.flash_attention(q, k, v, causal=False), 10)
+    got = fa.flash_attention(q, k, v, causal=False)
+    out = {}
+    plain_ms = cuda_ms(lambda: out.update(want=fa.flash_attention_ref(
+        q, k, v, causal=False)))
+    err = float((got.float() - out["want"].float()).abs().max())
+    qc, kc, vc = (x.contiguous() for x in (q, k, v))
+    lib_ms, _ = median_ms(lambda: library_attention(qc, kc, vc, False))
+    esize = q.element_size()
+    n_bytes = esize * (2 * q.numel() + k.numel() + v.numel())
+    flops = 2 * 2 * b * h * s * t * dh
+    bnd, by = bound(n_bytes, flops, BF16_OPS_PER_S if dtype ==
+                    torch.bfloat16 else F32_OPS_PER_S)
+    name = str(dtype).replace("torch.", "")
+    print(f"flash_attention {HUBERT} dh={dh} B={b} H={h} K={kh} S={s} T={t} "
+          f"{name} bidirectional: kernel {kernel_ms:.4f} ms/launch (of "
+          f"{[round(x, 4) for x in times]}; on the card "
+          f"{card_text(dev_ms)}), plain {plain_ms:.3f} ms, library "
+          f"{lib_ms:.4f} ms, bound {bnd:.5f} ms ({by}; "
+          f"{n_bytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP), max abs err "
+          f"{err:.3g}", flush=True)
+    if err > attn_tol(dtype):
+        raise AssertionError(f"flash_attention != plain at dh={dh} B={b} "
+                             f"S={s} T={t} {name}")
+    return {"ms": kernel_ms, "card_ms": dev_ms, "plain_ms": plain_ms,
+            "max_abs_err": err, "bound_ms": bnd, "bound_by": by,
+            "library_ms": lib_ms}
+
+
+def phase_hubert_kernels(fa, fb, da) -> dict:
+    """``flash_attention`` at hubert's head dim of 80 (16 q heads on 16 kv
+    heads, bidirectional) on both routes: each of ``DH80_LENGTHS`` against
+    its plain version (``flash_case``: every bf16 launch on the tensor-core
+    route, every f32 one not), then timed (``dh80_timing``).  A dh-80
+    ``flash_attention_bwd`` or ``decode_attention`` call on the card must
+    raise, launching nothing.  -> {"<dtype> S/T": timing}."""
+    import torch
+    from repro_torch.configs import registry
+    cfg = registry.get(HUBERT)[0]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(10)
+    h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    out, bad = {}, []
+    for dtype in (torch.float32, torch.bfloat16):
+        for s, t in DH80_LENGTHS:
+            b = SERVE_BATCH if s == HUBERT_FRAMES else 2
+            err, ok = flash_case(fa, gen, b, h, kh, s, t, dh, dtype, False,
+                                 0)
+            name = f"{str(dtype).replace('torch.', '')} {s}/{t}"
+            print(f"flash_attention {HUBERT} dh={dh} B={b} S={s} T={t} "
+                  f"{name.split()[0]} bidirectional: max abs err {err:.3g}"
+                  f"{'' if ok else ' OVER TOLERANCE'}", flush=True)
+            if not ok:
+                bad.append(name)
+                continue
+            out[name] = dict(dh80_timing(fa, gen, b, h, kh, s, t, dh,
+                                         dtype), batch=b)
+    if bad:
+        raise AssertionError(f"flash_attention at dh {dh} != plain: {bad}")
+    x = torch.zeros((1, h, 8, dh), dtype=torch.bfloat16, device="cuda")
+    lse = torch.zeros((1, h, 8), device="cuda")
+    lens = torch.ones(1, dtype=torch.int32, device="cuda")
+    n0 = (fb.flash_attention_bwd.launches, da.decode_attention.launches)
+    for name, call in (
+            ("flash_attention_bwd", lambda: fb.flash_attention_bwd(
+                x, x, x, x, lse, x, causal=False)),
+            ("decode_attention", lambda: da.decode_attention(
+                x[:, :, 0], x, x, lens))):
+        try:
+            call()
+        except ValueError as e:
+            if "head dims" not in str(e):
+                raise
+            print(f"{name} at dh {dh} on the card raises: {e}", flush=True)
+        else:
+            raise AssertionError(f"{name} took head dim {dh}")
+    if (fb.flash_attention_bwd.launches, da.decode_attention.launches) != n0:
+        raise AssertionError("a dh-80 call launched a kernel")
+    return out
+
+
+def frontend_batch(cfg, gen, b) -> tuple:
+    """A batch of a frontend model's phase, from ``gen`` (f32 normals for
+    the stubs' precomputed embeddings): hubert's ``frames`` [B, 1,000,
+    d_model]; llava's ``n_patches`` ``patch_embeds`` and LLAVA_TEXT
+    tokens.  -> (batch, the decode steps' tokens or None)."""
+    import torch
+    if cfg.frontend == "audio_stub":
+        return {"frames": torch.randn(b, HUBERT_FRAMES, cfg.d_model,
+                                      generator=gen, device="cuda")}, None
+    toks = torch.randint(0, cfg.vocab, (b, LLAVA_TEXT + FRONTEND_DECODE),
+                         generator=gen, device="cuda")
+    return {"patch_embeds": torch.randn(b, cfg.n_patches, cfg.d_model,
+                                        generator=gen, device="cuda"),
+            "tokens": toks[:, :LLAVA_TEXT]}, toks[:, LLAVA_TEXT:]
+
+
+def frontend_steps(lm, params, cfg, batch, dec_toks, **kernels) -> tuple:
+    """hubert: one ``lm.forward``; llava: ``lm.prefill`` into a
+    LLAVA_CACHE-slot cache, then a decode step for each of ``dec_toks``'
+    columns.  -> (logits [B, S or 1 + steps, V], the forward's or
+    prefill's seconds, the mean decode step's seconds or None)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if dec_toks is None:
+        out = lm.forward(params, cfg, batch, **kernels)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, None
+    b = dec_toks.shape[0]
+    out, cache = lm.prefill(params, cfg, batch,
+                            lm.init_cache(cfg, b, LLAVA_CACHE, "cuda"),
+                            **kernels)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    steps = [out]
+    lengths = torch.full((b,), cfg.n_patches + LLAVA_TEXT, dtype=torch.int32,
+                         device="cuda")
+    t0 = time.perf_counter()
+    for i in range(dec_toks.shape[1]):
+        out, cache, lengths = lm.decode_step(
+            params, cfg, dec_toks[:, i:i + 1], lengths, cache, **kernels)
+        steps.append(out)
+    torch.cuda.synchronize()
+    return torch.cat(steps, dim=1), t_pre, \
+        (time.perf_counter() - t0) / dec_toks.shape[1]
+
+
+def phase_frontend_model(fa, da, arch, n_want) -> dict:
+    """``arch`` (llava or hubert) at its full config on the card: the
+    parameter count, its steps (``frontend_steps``) through the kernels and
+    through the plain versions with the kernel counters read around the
+    kernel path, logits held together (3 % of the largest); every
+    ``flash_attention`` launch on the tensor-core route and, for llava,
+    every ``decode_attention`` call split.  Then where a forward's,
+    prefill's and decode step's time goes (``timed_attn_layer``: casts,
+    projections, attention, FFN; and the unembedding), how much of each
+    the card is busy, and the peak memory.  The weights are freed.
+    -> {"launches": {counter: n}, "times": {step: ms}}."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models import layers, lm
+    cfg = registry.get(arch)[0]
+    n = lm.n_params(cfg)
+    if n != n_want or cfg.dtype != "bfloat16":
+        raise AssertionError(f"{arch}: {n} parameters in {cfg.dtype}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"{arch}: {n} parameters ({cfg.param_dtype} at rest, {cfg.dtype} "
+          f"compute, frontend {cfg.frontend}), init "
+          f"{time.perf_counter() - t0:.3f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    b = SERVE_BATCH
+    batch, dec_toks = frontend_batch(cfg, gen, b)
+    s = HUBERT_FRAMES if dec_toks is None else cfg.n_patches + LLAVA_TEXT
+    what = (f"forward of {b} x {s} frames" if dec_toks is None else
+            f"prefill of {b} x ({cfg.n_patches} patches + {LLAVA_TEXT} "
+            f"tokens), {FRONTEND_DECODE} decode steps")
+    counters = {"flash_attention": (fa.flash_attention, "launches"),
+                "flash_attention tensor-core": (fa.flash_attention,
+                                                "launches_tc"),
+                "decode_attention": (da.decode_attention, "launches"),
+                "decode_attention split": (da.decode_attention,
+                                           "launches_split")}
+    count = lambda: {k: getattr(f, a) for k, (f, a) in counters.items()}
+    frontend_steps(lm, params, cfg, batch, dec_toks)            # warm
+    logits, times, launches = {}, {}, {}
+    for path, kernels in (("kernel", {}), ("plain", dict(
+            flash_attention=fa.flash_attention_ref,
+            decode_attention=da.decode_attention_ref))):
+        n0 = count()
+        logits[path], t_pre, t_dec = frontend_steps(
+            lm, params, cfg, batch, dec_toks, **kernels)
+        launches[path] = {k: v - n0[k] for k, v in count().items()}
+        times[path] = (t_pre, t_dec)
+        print(f"model {arch} {path} path: {what}: "
+              f"{'forward' if t_dec is None else 'prefill'} "
+              f"{t_pre * 1e3:.2f} ms"
+              + ("" if t_dec is None else
+                 f", decode step {t_dec * 1e3:.2f} ms (mean of "
+                 f"{FRONTEND_DECODE})")
+              + f"; launches {launches[path]}", flush=True)
+    k_run = launches["kernel"]
+    layers_n, steps = cfg.n_layers, 0 if dec_toks is None else \
+        dec_toks.shape[1]
+    want = {"flash_attention": layers_n,
+            "flash_attention tensor-core": layers_n,
+            "decode_attention": layers_n * steps,
+            "decode_attention split": layers_n * steps}
+    if k_run != want or any(launches["plain"].values()):
+        raise AssertionError(f"{arch} launches {launches}, the kernel path "
+                             f"should launch {want} and the plain none")
+    a, w = logits["kernel"], logits["plain"]
+    err = float((a - w).abs().max())
+    tol = MODEL_LOGITS_TOL * float(w.abs().max())
+    shape = (b, s if dec_toks is None else 1 + steps, cfg.vocab)
+    ok = bool(torch.isfinite(a).all()) and tuple(a.shape) == shape \
+        and err <= tol
+    print(f"model {arch} kernel vs plain logits {tuple(a.shape)}: max abs "
+          f"diff {err:.4g} (mean {float((a - w).abs().mean()):.3g}, largest "
+          f"logit {float(w.abs().max()):.4g}), tolerance {tol:.4g} "
+          f"({MODEL_LOGITS_TOL:.0%} of the largest): "
+          f"{'ok' if ok else 'over the bar'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{arch} logits: kernel path != plain path")
+    del logits, a, w
+    # Where a step's time goes.
+    p = params.tree()
+    names = ("forward",) if dec_toks is None else ("prefill", "decode")
+    for name in names:
+        spent = {}
+        decode = name == "decode"
+        x = lm._embed_tokens(p, cfg, dec_toks[:, :1]) if decode else \
+            lm._inputs_to_x(p, cfg, batch)
+        cache = None if dec_toks is None else lm._layer_caches(
+            lm.init_cache(cfg, b, LLAVA_CACHE, "cuda"), cfg)
+        lengths = torch.full((b,), s, dtype=torch.int32, device="cuda") \
+            if decode else None
+        for i, (_, lp) in enumerate(lm._layers(p, cfg)):
+            x, _ = timed_attn_layer(layers, lp, x, cfg,
+                                    None if cache is None else cache[i],
+                                    spent, lengths=lengths)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lm._unembed(p, cfg, x if name == "forward" else x[:, -1:])
+        torch.cuda.synchronize()
+        spent["unembed"] = time.perf_counter() - t0
+        tot = sum(spent.values())
+        print(f"{arch} one {name}, {cfg.n_layers} blocks cut by "
+              f"synchronisations ({tot * 1e3:.2f} ms in all; uncut "
+              f"{times['kernel'][decode] * 1e3:.2f} ms): "
+              + ", ".join(f"{k} {v * 1e3:.2f} ms ({v / tot:.1%})"
+                          for k, v in spent.items()), flush=True)
+        del x, cache
+    # How much of a step the card is busy.
+    if dec_toks is None:
+        busy = [("forward", lambda: lm.forward(params, cfg, batch), 3)]
+    else:
+        _, cache = lm.prefill(params, cfg, batch, lm.init_cache(
+            cfg, b, LLAVA_CACHE, "cuda"))
+        lengths = torch.full((b,), s, dtype=torch.int32, device="cuda")
+        busy = [("prefill", lambda: lm.prefill(
+                    params, cfg, batch,
+                    lm.init_cache(cfg, b, LLAVA_CACHE, "cuda")), 2),
+                ("decode step", lambda: lm.decode_step(
+                    params, cfg, dec_toks[:, :1], lengths, cache), 3)]
+    idle = {}
+    for name, fn, k in busy:
+        wall, card, idle[name] = device_busy(fn, k)
+        print(f"{arch} one {name}: {wall:.2f} ms wall, "
+              f"{card_text(card, '.2f')} ms of kernels and copies on the "
+              f"card (torch.profiler, mean of {k}), device idle share "
+              f"{card_text(idle[name], '.1%')}", flush=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{arch} model phase: max_memory_allocated {peak:.2f} GiB",
+          flush=True)
+    del params, busy
+    torch.cuda.empty_cache()
+    return {"launches": k_run, "peak_gib": peak, "idle": idle,
+            "times_ms": {k: None if v is None else v * 1e3 for k, v in zip(
+                ("first", "decode"), times["kernel"])}}
+
+
+def phase_llava(fa, da) -> dict:
+    """13i: both attention kernels at llava's shapes, then the model."""
+    kernels = phase_llava_kernels(fa, da)
+    return dict(phase_frontend_model(fa, da, LLAVA, LLAVA_PARAMS),
+                kernels=kernels)
+
+
+def phase_hubert(fa, fb, da) -> dict:
+    """13j: flash_attention at head dim 80, then the encoder."""
+    shapes = phase_hubert_kernels(fa, fb, da)
+    return dict(phase_frontend_model(fa, da, HUBERT, HUBERT_PARAMS),
+                shapes=shapes)
 
 
 # ---------------------------------------------------------------------------
@@ -4215,6 +4601,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         laps.lap("13b-13d gemma-7b")
         cut = phase_cut_models(fa, da, laps)
+        llava = phase_llava(fa, da)
+        laps.lap(f"13i {LLAVA}")
+        hubert = phase_hubert(fa, fb, da)
+        laps.lap(f"13j {HUBERT}")
         t0 = time.time()
         flash_bwd = phase_flash_bwd(fa, fb)
         rglru_bwd = phase_rglru_bwd(rs)
@@ -4321,9 +4711,18 @@ def main() -> int:
             row["launches_by_path"].update({
                 f"{arch} serve (cut)": launches[row["name"]]
                 for arch, (_, launches, _) in cut.items()})
+            row["llava_shape"] = dict(
+                llava["kernels"][row["name"]],
+                launches=llava["launches"][row["name"]])
+            row["launches_by_path"][
+                f"{LLAVA} prefill and {FRONTEND_DECODE} decode steps"] = \
+                llava["launches"][row["name"]]
         if row["name"] == "flash_attention":
             row["train_shape"] = dict(flash_bwd["forward"], launches=(
                 train_launches["flash_attention"]))
+            row["hubert_dh80_shapes"] = hubert["shapes"]
+            row["launches_by_path"][f"{HUBERT} forward"] = \
+                hubert["launches"]["flash_attention"]
         if row["name"] == "decode_attention":
             row.update(
                 launches_split=yi_launches["decode_attention split"],

@@ -59,6 +59,13 @@
 // * Shared memory: q 64 dh + 2 x (k + v) 64 dh bf16 (160 KB at dh 256, one
 //   block an SM; 80 KB at dh 128, two).  Registers: the o accumulator is
 //   dh / 2 floats a thread (128 at dh 256), s 32, p 16.
+// * A head dim that is not a whole number of 64-column panels (80:
+//   hubert-xlarge) keeps its tiles at the padded width DP (128, two
+//   panels).  The tensor maps hold the true extent, so TMA fills columns
+//   80-127 of every box with zeros and still counts the whole box's bytes
+//   on the barrier; q k^T runs the 5 k16 steps of the true columns, p v
+//   runs at N = DP over the zero columns of v, and the epilogue stores
+//   the 80 true ones.  Shared memory and registers are dh 128's.
 //
 // The f32 route (flash_attention_kernel) is the first port's kernel: one
 // block of 256 threads per (q tile of 64 rows, q head, batch); the q tile
@@ -280,6 +287,9 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
     case 64:
       return launch<T, 64>(q, k, v, o, lse, B, H, KH, S, T_len, st, scale,
                            causal, window, stream);
+    case 80:
+      return launch<T, 80>(q, k, v, o, lse, B, H, KH, S, T_len, st, scale,
+                           causal, window, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, lse, B, H, KH, S, T_len, st, scale,
                             causal, window, stream);
@@ -301,14 +311,17 @@ __device__ __forceinline__ bool visible(int i, int j, int T_len, int causal,
 
 template <int DH>
 struct FwdTC {
-  using Tl = hopper::Tile<DH>;
+  // The tiles' width: DH, or DH padded to whole 64-column panels.
+  static constexpr int DP =
+      DH <= 64 || DH % 64 == 0 ? DH : (DH + 63) / 64 * 64;
+  using Tl = hopper::Tile<DP>;
   static constexpr int kStages = 2;
   static constexpr int kThreads = 160;   // a consumer warpgroup + a producer
   static constexpr int kK = Tl::BYTES;   // q tile at 0
   static constexpr int kV = kK + kStages * Tl::BYTES;
   static constexpr int kBar = kV + kStages * Tl::BYTES;
   static constexpr int kSmem = kBar + 8 * (1 + 3 * kStages) + 1024;
-  static constexpr int kMinBlocks = DH == 256 ? 1 : 2;
+  static constexpr int kMinBlocks = DP == 256 ? 1 : 2;
 };
 
 template <int DH>
@@ -321,7 +334,8 @@ __global__ void __launch_bounds__(FwdTC<DH>::kThreads, FwdTC<DH>::kMinBlocks)
                               int T_len, Strides so, float scale, int causal,
                               int window) {
   using L = FwdTC<DH>;
-  using Tl = hopper::Tile<DH>;
+  using Tl = typename L::Tl;
+  constexpr int DP = L::DP;
   extern __shared__ char smem_raw[];
   char* smem = reinterpret_cast<char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -379,9 +393,9 @@ __global__ void __launch_bounds__(FwdTC<DH>::kThreads, FwdTC<DH>::kMinBlocks)
   // lane / 4; columns 8 j + 2 (lane % 4) + c of each 8-column group.
   const int t4 = lane % 4;
   const int row0 = q0 + warp * 16 + lane / 4;
-  float acc[DH / 2], s[32];
+  float acc[DP / 2], s[32];
 #pragma unroll
-  for (int e = 0; e < DH / 2; ++e) acc[e] = 0.0f;
+  for (int e = 0; e < DP / 2; ++e) acc[e] = 0.0f;
 #pragma unroll
   for (int e = 0; e < 32; ++e) s[e] = 0.0f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
@@ -442,7 +456,7 @@ __global__ void __launch_bounds__(FwdTC<DH>::kThreads, FwdTC<DH>::kMinBlocks)
       m[i] = m_new;
     }
 #pragma unroll
-    for (int j = 0; j < DH / 8; ++j)
+    for (int j = 0; j < DP / 8; ++j)
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         acc[4 * j + 2 * i] *= alpha[i];
@@ -491,10 +505,11 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
               float* lse, int B, int H, int KH, int S, int T_len,
               const long long* st, float scale, int causal, int window,
               void* stream) {
+  constexpr int DP = FwdTC<DH>::DP;
   CUtensorMap tq, tk, tv;
-  int err = hopper::make_map<DH>(&tq, q, B, H, S, st);
-  if (err == 0) err = hopper::make_map<DH>(&tk, k, B, KH, T_len, st + 3);
-  if (err == 0) err = hopper::make_map<DH>(&tv, v, B, KH, T_len, st + 6);
+  int err = hopper::make_map<DP>(&tq, q, B, H, S, st, DH);
+  if (err == 0) err = hopper::make_map<DP>(&tk, k, B, KH, T_len, st + 3, DH);
+  if (err == 0) err = hopper::make_map<DP>(&tv, v, B, KH, T_len, st + 6, DH);
   if (err != 0) return err;
   constexpr int smem = FwdTC<DH>::kSmem;
   cudaError_t e = cudaFuncSetAttribute(
@@ -521,6 +536,9 @@ int dispatch_tc(const void* q, const void* k, const void* v, void* o,
     case 64:
       return launch_tc<64>(q, k, v, o, lse, B, H, KH, S, T_len, st, scale,
                            causal, window, stream);
+    case 80:
+      return launch_tc<80>(q, k, v, o, lse, B, H, KH, S, T_len, st, scale,
+                           causal, window, stream);
     case 128:
       return launch_tc<128>(q, k, v, o, lse, B, H, KH, S, T_len, st, scale,
                             causal, window, stream);
@@ -540,7 +558,7 @@ extern "C" {
 // [B, KH, T, dh], H % KH == 0; f32 (bf16 = 0: the f32 kernel) or bf16
 // (bf16 = 1: the tensor-core kernel), all of one type.  `strides` holds 12
 // element strides: (batch, head, row) of q, k, v and o in that order; the
-// head dim is contiguous.  dh is 32, 64, 128 or 256.  For bf16 the bases
+// head dim is contiguous.  dh is 32, 64, 80, 128 or 256.  For bf16 the bases
 // of q, k, v and their strides are multiples of 16 bytes (TMA).  `lse` is
 // NULL or a contiguous [B, H, S] f32 output of the rows' log-sum-exp.
 // Returns 0, a cudaError_t, or a tensor map's CUresult + 1000.

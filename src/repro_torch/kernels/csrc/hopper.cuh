@@ -370,14 +370,16 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128],
 
 // ------------------------------------------------------------ tensor maps
 
-// A 4-D tensor map of a bf16 [batch, heads, rows, dh] operand given by its
-// three outer strides in elements (the head dim contiguous), for boxes of
-// 64 rows x PW columns with the matching swizzle; rows past `rows` read as
-// zeros.  Returns 0 or the CUresult of the encoding, offset by 1000.
+// A 4-D tensor map of a bf16 [batch, heads, rows, cols] operand given by
+// its three outer strides in elements (the head dim contiguous), for the
+// boxes of 64 rows x PW columns of a Tile<DH> with the matching swizzle;
+// rows past `rows` and columns past `cols` (a head dim padded to the
+// tile's DH) read as zeros.  Returns 0 or the CUresult of the encoding,
+// offset by 1000.
 template <int DH>
 inline int make_map(CUtensorMap* map, const void* base, int batch, int heads,
-                    int rows, const long long* strides) {
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(DH),
+                    int rows, const long long* strides, int cols = DH) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(batch)};

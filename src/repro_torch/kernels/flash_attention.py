@@ -35,7 +35,7 @@ __all__ = ["flash_attention", "flash_attention_ref", "flash_attention_lse_ref",
            "HEAD_DIMS"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128, 256)       # the head dims the kernel is built for
+HEAD_DIMS = (32, 64, 80, 128, 256)   # the head dims the kernel is built for
 
 
 def _lib() -> ctypes.CDLL:

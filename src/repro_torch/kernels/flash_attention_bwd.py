@@ -39,12 +39,16 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention import HEAD_DIMS, _DTYPES, \
-    _check, flash_attention, tma_ok, tma_strides
+from repro_torch.kernels.flash_attention import _DTYPES, _check, \
+    flash_attention, tma_ok, tma_strides
 from repro_torch.kernels.ref import flash_attention_bwd_ref
 
 __all__ = ["flash_attention_bwd", "flash_attention_bwd_ref",
-           "FlashAttentionFn"]
+           "FlashAttentionFn", "HEAD_DIMS"]
+
+# The head dims the kernels are built for: the forward's but 80, whose
+# backward (hubert-xlarge's training) is not written yet.
+HEAD_DIMS = (32, 64, 128, 256)
 
 
 def _lib() -> ctypes.CDLL:

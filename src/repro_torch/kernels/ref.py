@@ -23,25 +23,43 @@ def attention_mask(s: int, t: int, causal: bool, window: int, device):
     return mask
 
 
-def _masked_scores(q, k, causal, window):
+def _masked_scores(q, k, causal, window, row0=0):
     """f32 scores [B,K,g,S,T] (GQA groups written out), ``-inf`` where
-    masked."""
+    masked; q's rows are the queries from ``row0`` on."""
     b, h, s, dh = q.shape
     kh, t = k.shape[1], k.shape[2]
     qf = q.float().reshape(b, kh, h // kh, s, dh)
     scores = torch.einsum("bkgsd,bktd->bkgst", qf, k.float()) \
         / float(np.sqrt(dh))
-    mask = attention_mask(s, t, causal, window, q.device)
+    mask = attention_mask(row0 + s, t, causal, window, q.device)[row0:]
     return scores.masked_fill(~mask, float("-inf"))
+
+
+# The most f32 scores the plain attention holds at once (1 GiB).  A call
+# with more (llava-next-mistral-7b's prefill, 8 x 32 heads x 3,008^2: 9.3
+# GB) runs in blocks of query rows, each row's arithmetic unchanged.
+SCORE_BLOCK = 1 << 28
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=0):
     """q: [B,H,S,dh]; k,v: [B,K,T,dh] (GQA: H % K == 0) -> [B,H,S,dh].
 
     f32 scores, softmax and P.V; masked scores are ``-inf`` (a row with no
-    valid key comes out NaN); the result in q's dtype."""
+    valid key comes out NaN); the result in q's dtype.  Over
+    ``SCORE_BLOCK`` scores, in blocks of query rows."""
+    b, h, s, _ = q.shape
+    rows = max(1, SCORE_BLOCK // (b * h * k.shape[2]))
+    if rows < s:
+        return torch.cat([
+            _flash_rows(q[:, :, i:i + rows], k, v, causal, window, i)
+            for i in range(0, s, rows)], dim=2)
+    return _flash_rows(q, k, v, causal, window, 0)
+
+
+def _flash_rows(q, k, v, causal, window, row0):
+    """:func:`flash_attention_ref` of the queries from ``row0`` on."""
     b, h, s, dh = q.shape
-    scores = _masked_scores(q, k, causal, window)
+    scores = _masked_scores(q, k, causal, window, row0)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgst,bktd->bkgsd", probs, v.float())
     return out.reshape(b, h, s, dh).to(q.dtype)

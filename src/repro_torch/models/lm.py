@@ -3,16 +3,21 @@
 A :class:`~repro_torch.models.config.ModelConfig` picks a mixer per layer
 from its block pattern: full or local attention (``attn`` /
 ``local_attn``), the RG-LRU recurrence (``rglru``) or the xLSTM family
-(``mlstm`` / ``slstm``), on token inputs; an attention block's FFN is a
-mixture of experts when the config has ``n_experts``.  A modality
-frontend raises ``NotImplementedError`` naming it.
+(``mlstm`` / ``slstm``); an attention block's FFN is a mixture of experts
+when the config has ``n_experts``.  The layer-0 input follows the config's
+modality frontend, as the reference's stubs take it (:func:`_inputs_to_x`):
+token embeddings (``none``), precomputed frame embeddings ``frames``
+[B, S, d_model] (``audio_stub``: an encoder with no ``embed`` leaf), or
+precomputed ``patch_embeds`` [B, P, d_model] put before the token
+embeddings (``vision_stub``).
 
 Parameters live in :class:`Model`, an ``nn.Module`` whose parameter names
-mirror the JAX package's tree (``embed``, ``final_ln``, ``unembed``, and
-``blocks.<i>.<leaf>`` for a mixed stack).  A uniform stack with
-``scan_layers`` keeps the reference's scanned layout: each leaf under
-``layers.<leaf>`` (``layers.mlp.<leaf>``) stacked with a leading
-``n_layers`` axis, and its cache one dict of stacked leaves.  The step
+mirror the JAX package's tree (``embed`` but for ``audio_stub``,
+``final_ln``, ``unembed``, and ``blocks.<i>.<leaf>`` for a mixed stack).
+A uniform stack with ``scan_layers`` keeps the reference's scanned
+layout: each leaf under ``layers.<leaf>`` (``layers.mlp.<leaf>``)
+stacked with a leading ``n_layers`` axis, and its cache one dict of
+stacked leaves.  The step
 functions loop over the layers, taking each layer's parameters as views
 of the stacked leaves.  They take the module (or the nested dict
 :meth:`ParamTree.tree` returns) and work on plain tensors, as the
@@ -95,14 +100,16 @@ CACHE_SCHEMAS = {
 KERNELS = ("mlstm_scan", "rglru_scan", "flash_attention", "decode_attention")
 
 
+FRONTENDS = ("none", "audio_stub", "vision_stub")
+
+
 def _check_config(cfg: ModelConfig) -> None:
     for kind in cfg.blocks():
         if kind not in BLOCK_SCHEMAS:
             raise KeyError(kind)
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"frontend {cfg.frontend!r} ({cfg.name}) is not ported to "
-            f"repro_torch yet")
+    if cfg.frontend not in FRONTENDS:
+        raise KeyError(f"unknown frontend {cfg.frontend!r} ({cfg.name}); "
+                       f"known: {list(FRONTENDS)}")
 
 
 def _check_kernels(kernels: dict) -> None:
@@ -131,9 +138,11 @@ def _stack(schema, n: int):
 def build_schema(cfg: ModelConfig) -> dict:
     _check_config(cfg)
     d, v = cfg.d_model, cfg.vocab
-    sch = {"embed": PSpec((v, d), ("vocab", "embed"), ("normal", 1.0)),
-           "final_ln": PSpec((d,), ("norm",), ("zeros",))}
-    if not cfg.tie_embeddings:
+    audio = cfg.frontend == "audio_stub"
+    sch = {} if audio else {
+        "embed": PSpec((v, d), ("vocab", "embed"), ("normal", 1.0))}
+    sch["final_ln"] = PSpec((d,), ("norm",), ("zeros",))
+    if not cfg.tie_embeddings or audio:
         sch["unembed"] = PSpec((d, v), ("embed", "vocab"),
                                ("normal", 1.0 / np.sqrt(d)))
     blocks = cfg.blocks()
@@ -353,6 +362,23 @@ def _embed_tokens(p: dict, cfg: ModelConfig, tokens):
     return x
 
 
+def _inputs_to_x(p: dict, cfg: ModelConfig, batch):
+    """The layer-0 input of a batch (the reference's ``_inputs_to_x``):
+    ``frames`` in the compute dtype for ``audio_stub``; for
+    ``vision_stub`` the ``patch_embeds`` in the compute dtype put before
+    the token embeddings (an embedding-scaled model's f32 ones widen the
+    patches to f32, as JAX's concatenate promotes); else the token
+    embeddings."""
+    dtype = cfg.compute_dtype()
+    if cfg.frontend == "audio_stub":
+        return batch["frames"].to(dtype)
+    x = _embed_tokens(p, cfg, batch["tokens"])
+    if cfg.frontend == "vision_stub":
+        patches = batch["patch_embeds"].to(dtype)
+        x = torch.cat([patches.to(x.dtype), x], dim=1)
+    return x
+
+
 def _unembed(p: dict, cfg: ModelConfig, x):
     dtype = cfg.compute_dtype()
     x = rms_norm(x, p["final_ln"], cfg.norm_eps)
@@ -412,7 +438,7 @@ def forward_train(params, cfg: ModelConfig, batch, **kernels):
     ``jax.checkpoint`` per block, ``repro/models/lm.py:250-265``)."""
     _check_kernels(kernels)
     p = _tree(params)
-    x = _embed_tokens(p, cfg, batch["tokens"])
+    x = _inputs_to_x(p, cfg, batch)
     positions = _positions(*x.shape[:2], x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     for kind, lp in _layers(p, cfg):
@@ -446,7 +472,7 @@ def prefill(params, cfg: ModelConfig, batch, cache, **kernels):
     The input cache is not modified."""
     _check_kernels(kernels)
     p = _tree(params)
-    x = _embed_tokens(p, cfg, batch["tokens"])
+    x = _inputs_to_x(p, cfg, batch)
     positions = _positions(*x.shape[:2], x.device)
     new_cache = []
     for (kind, lp), lc in zip(_layers(p, cfg), _layer_caches(cache, cfg)):
@@ -461,10 +487,13 @@ def decode_step(params, cfg: ModelConfig, tokens, lengths, cache,
                 **kernels):
     """One token for every sequence. tokens [B,1]; lengths [B] (positions).
     -> (logits [B,1,V], cache, lengths + 1).  The input cache is not
-    modified."""
+    modified.  An ``audio_stub`` model has no embedding: ``tokens`` pass
+    through as the layer-0 input, as in the reference (encoder-only
+    configs are never decoded)."""
     _check_kernels(kernels)
     p = _tree(params)
-    x = _embed_tokens(p, cfg, tokens)
+    x = tokens if cfg.frontend == "audio_stub" else \
+        _embed_tokens(p, cfg, tokens)
     positions = lengths[:, None].to(torch.int32)
     new_cache = []
     for (kind, lp), lc in zip(_layers(p, cfg), _layer_caches(cache, cfg)):

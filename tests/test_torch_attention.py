@@ -51,6 +51,8 @@ PALLAS_FLASH = [
     (1, 8, 2, 128, 128, 32, True, 0),      # GQA 4:1
     (1, 4, 4, 64, 128, 32, False, 0),      # bidirectional, longer K
     (1, 4, 1, 128, 128, 32, True, 32),     # MQA, local window
+    (1, 4, 4, 64, 128, 80, False, 0),      # hubert's head dim, bidirectional
+    (2, 4, 2, 128, 64, 80, False, 0),      # dh 80, GQA, S > T
 ]
 
 
@@ -75,6 +77,7 @@ RAGGED_FLASH = [
     (1, 4, 2, 37, 90, 16, False, 0),       # ragged, bidirectional
     (1, 8, 8, 100, 100, 16, True, 13),     # ragged window
     (1, 4, 1, 100, 30, 16, True, 0),       # causal with S > T
+    (2, 4, 4, 77, 300, 80, False, 0),      # dh 80, ragged, bidirectional
 ]
 
 
@@ -175,3 +178,14 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="cache"):
         tda.decode_attention(q[:, :, 0], q, q[:, :, :4],
                              torch.ones(1, dtype=torch.int32))
+
+
+def test_head_dims_each_kernel_is_built_for():
+    """The forward takes hubert-xlarge's head dim of 80 on both routes;
+    the backward (its training) and decode (it is encoder-only) do not,
+    so a dh-80 call of either raises on a CUDA tensor."""
+    from repro_torch.kernels import flash_attention_bwd as tfb
+    assert tfa.HEAD_DIMS == (32, 64, 80, 128, 256)
+    assert 80 not in tfb.HEAD_DIMS and 80 not in tda.HEAD_DIMS
+    assert set(tfb.HEAD_DIMS) == set(tda.HEAD_DIMS) == \
+        set(tfa.HEAD_DIMS) - {80}

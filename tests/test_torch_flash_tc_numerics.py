@@ -77,12 +77,14 @@ def _inputs(h, kh, s, t, dh, seed):
             .to(torch.bfloat16) for sh in shapes]
 
 
-def tc_forward(q, k, v, *, causal, window):
-    """The tensor-core forward's arithmetic: -> (out bf16, lse f32)."""
+def tc_forward(q, k, v, *, causal, window, scale=None):
+    """The tensor-core forward's arithmetic: -> (out bf16, lse f32).  The
+    scale is 1 / sqrt(dh) unless given (a head dim padded with zero
+    columns keeps its true one)."""
     b, h, s, dh = q.shape
     kh, t = k.shape[1], k.shape[2]
     g = h // kh
-    scale = np.float32(1.0 / np.sqrt(dh))
+    scale = np.float32(1.0 / np.sqrt(dh) if scale is None else scale)
     qf = q.float()
     kf = k.float().repeat_interleave(g, dim=1)
     vf = v.float().repeat_interleave(g, dim=1)
@@ -231,3 +233,35 @@ def test_tma_strides_take_the_models_views_and_raise_on_the_rest():
 ])
 def test_dkv_splits_put_a_block_on_each_sm(b, kh, t, sms, want):
     assert dkv_splits(b, kh, t, sms) == want
+
+
+# hubert-xlarge's attention: 16 q heads on 16 kv heads of 80,
+# bidirectional; S/T of chip_smoke.py's phase 13j but its longest, and a
+# GQA group with a causal window for the mask paths.
+DH80_CASES = [(16, 16, s, t, False, 0)
+              for s, t in ((1, 1), (63, 65), (77, 300), (1000, 1000))] \
+    + [(8, 2, 129, 64, True, 64)]
+
+
+@pytest.mark.parametrize("h,kh,s,t,causal,window", DH80_CASES)
+def test_tc_forward_at_head_dim_80(h, kh, s, t, causal, window):
+    """The bf16 route at head dim 80 keeps 128-column tiles whose columns
+    80-127 TMA fills with zeros: those add exact zeros to q k^T and give
+    zero output columns, so the padded arithmetic is the unpadded one bit
+    for bit, and it holds the card's bar against the plain version and
+    the JAX model's bf16 attention."""
+    q, k, v, _ = _inputs(h, kh, s, t, 80, seed=80 + s + t)
+    out, lse = tc_forward(q, k, v, causal=causal, window=window)
+    pad = [torch.nn.functional.pad(x, (0, 48)) for x in (q, k, v)]
+    out_p, lse_p = tc_forward(*pad, causal=causal, window=window,
+                              scale=1.0 / np.sqrt(80))
+    assert torch.equal(out_p[..., :80], out) and torch.equal(lse_p, lse)
+    assert bool((out_p[..., 80:] == 0).all())
+    seen = _seen(s, t, causal, window)
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert torch.allclose(out[:, :, seen].float(), want[:, :, seen].float(),
+                          atol=ATTN_TOL, rtol=ATTN_TOL)
+    jax_out, _ = _jax_attention_and_grads(q, k, v, torch.zeros_like(q),
+                                          causal, window)
+    assert torch.allclose(out[:, :, seen].float(), jax_out[:, :, seen],
+                          atol=ATTN_TOL, rtol=ATTN_TOL)

@@ -26,6 +26,7 @@ from repro.configs import registry as jreg
 from repro.models import lm as jlm
 from repro.models import xlstm as jx
 from repro_torch.configs import registry as treg
+from repro_torch.launch import train as ttrain
 from repro_torch.models import lm as tlm
 from repro_torch.models import xlstm as tx
 
@@ -188,14 +189,21 @@ def test_entry_points_need_a_card_unless_told_the_cpu(monkeypatch):
 
 
 def test_registry_raises_for_what_is_not_ported():
-    for arch in ("llava-next-mistral-7b",):
-        with pytest.raises(NotImplementedError,
-                           match=arch.replace("-", "_")):
-            treg.get(arch)
+    """Every architecture of the reference is ported; an unknown name, an
+    unknown frontend and training a frontend config are still refused."""
+    assert sorted(treg.PORTED) == sorted(jreg.ARCHS)
+    for arch in treg.ALIASES:
+        assert dataclasses.asdict(treg.get(arch)[0]) == \
+            dataclasses.asdict(jreg.get(arch)[0])
     with pytest.raises(KeyError):
         treg.get("no-such-arch")
     assert treg.ALIASES == jreg.ALIASES
-    vision = dataclasses.replace(treg.get_tiny("xlstm-125m"),
-                                 frontend="vision_stub")
+    cfg = treg.get_tiny("xlstm-125m")
+    with pytest.raises(KeyError, match="no_such_frontend"):
+        tlm.build_schema(dataclasses.replace(cfg,
+                                             frontend="no_such_frontend"))
+    vision = dataclasses.replace(cfg, frontend="vision_stub")
+    assert "embed" in tlm.build_schema(vision)
     with pytest.raises(NotImplementedError, match="vision_stub"):
-        tlm.build_schema(vision)
+        ttrain.main(["--arch", "llava-next-mistral-7b", "--tiny"],
+                    device="cpu")

@@ -30,6 +30,7 @@ from repro.configs import registry as jreg
 from repro.models import layers as jlayers
 from repro.models import lm as jlm
 from repro_torch.configs import registry as treg
+from repro_torch.launch import train as ttrain
 from repro_torch.kernels.ref import decode_attention_ref, \
     flash_attention_ref
 from repro_torch.models import layers as tlayers
@@ -327,12 +328,20 @@ def test_explicit_plain_kernels_are_the_cpu_path():
 
 
 def test_what_is_not_ported_raises():
+    """The two frontends build; an unknown frontend, an unknown arch and
+    training a frontend config are still refused."""
     cfg = treg.get_tiny("yi-6b")
     for frontend in ("vision_stub", "audio_stub"):
-        with pytest.raises(NotImplementedError, match=frontend):
-            tlm.build_schema(dataclasses.replace(cfg, frontend=frontend))
-    with pytest.raises(NotImplementedError, match="hubert_xlarge"):
-        treg.get("hubert-xlarge")
+        sch = tlm.build_schema(dataclasses.replace(cfg, frontend=frontend))
+        assert ("embed" in sch) == (frontend == "vision_stub")
+    with pytest.raises(KeyError, match="image_tower"):
+        tlm.init_cache(dataclasses.replace(cfg, frontend="image_tower"), 1,
+                       8, "cpu")
+    assert treg.get("hubert-xlarge")[0].frontend == "audio_stub"
+    with pytest.raises(KeyError, match="hubert-large"):
+        treg.get("hubert-large")
+    with pytest.raises(NotImplementedError, match="audio_stub"):
+        ttrain.main(["--arch", "hubert-xlarge", "--tiny"], device="cpu")
     # The mixture of experts is ported: the reference's "moe" subtree.
     moe = dataclasses.replace(cfg, n_experts=4, top_k=2)
     sch = tlayers.attn_schema(moe, local=True)
